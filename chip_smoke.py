@@ -2,9 +2,14 @@
 
 Builds the race kernels from gym_pybullet_adrp_tpu_torch/csrc, holds each
 against its plain PyTorch version on the card, evaluates the shipped
-level1 policy through the port's main path (the fused race step kernel,
-and the window kernel + plain tail), and times the fused step against its
-plain version. Every phase prints one line; any failed phase exits
+level1 policy through the port's serving path (the fused race step
+kernel, and the window kernel + plain tail), times the fused step; then
+holds the step kernel's policy option against its plain version, the
+K-step rollout kernel against K launches of the step kernel, and the
+card's PPO update against the CPU's, trains a race policy at full width
+through the policy-in-kernel rollout (and, briefly, through the other
+two rollout paths), saves, reloads and evaluates it, and times the
+rollout kernel. Every phase prints its lines; any failed phase exits
 non-zero without the final result line.
 
 Usage (needs one CUDA device and nvcc; no JAX):
@@ -14,13 +19,17 @@ Usage (needs one CUDA device and nvcc; no JAX):
 """
 
 import argparse
+import copy
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 REPO = Path(__file__).resolve().parent
 
@@ -35,6 +44,14 @@ TOL = {
     "obs": 1e-3,               # abs
     "reward": 1e-3,            # abs
 }
+# the policy's outputs (tanhf/expf, libm on both sides)
+POLICY_TOL = 1e-5            # abs, ACT/LOGP/VAL
+# the card's PPO epoch against the CPU's, per tensor: max |diff| over
+# max(1, max |param|); stated before the first run
+PPO_TOL = 1e-5
+# H100 SXM data sheet: float32 outside the tensor cores, and HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 S_GROUPS = {
     "pos/quat/vel": [*range(0, 10), 24, 25, 26],
     "omega/rpy": [10, 11, 12, 21, 22, 23],
@@ -80,6 +97,81 @@ def compare_s(name, got, ref):
             errs[grp] = float(d.max())
             check(errs[grp] <= TOL[grp],
                   f"{name}: {grp} abs err {errs[grp]} > {TOL[grp]}")
+    return errs
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the operations a plain version performs: one per output
+    element of every elementwise aten op (tagged pointwise), one per
+    input element of a reduction."""
+
+    REDUCTIONS = ("aten.amin", "aten.amax", "aten.sum", "aten.mean")
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if torch.Tag.pointwise in func.tags:
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            self.ops += sum(o.numel() for o in outs
+                            if isinstance(o, torch.Tensor))
+        elif str(func).startswith(self.REDUCTIONS):
+            self.ops += args[0].numel()
+        return out
+
+
+def count_ops(fn):
+    with OpCount() as c:
+        fn()
+    return c.ops
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def bound(inputs, outputs, ops):
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over HBM's rate and
+    the operations over the float32 peak."""
+    b = nbytes(*inputs) + nbytes(*outputs)
+    t_b, t_o = b / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": b, "ops": ops}
+
+
+STEP_OUT = ("S", "R", "GG", "OO", "EP", "OBS", "REW", "DONE", "INFO",
+            "ACT", "LOGP", "VAL")
+ROLL_OUT = ("S", "R", "GG", "OO", "EP", "REW", "DONE", "OBS", "INFO", "ACT",
+            "LOGP", "VAL")
+
+
+def check_step(name, got, ref):
+    """Hold a kernel's outputs (dicts by output name; sequences may carry
+    a leading K axis) against its plain version's with ``TOL``; returns
+    the errors and the largest absolute difference of any block."""
+    compare_s(name + " S", got["S"], ref["S"])
+    for k in got:
+        check(got[k].shape == ref[k].shape, f"{name} {k} shape")
+        check(torch.isfinite(got[k]).all().item(), f"{name} {k} non-finite")
+    check(torch.equal(got["R"][:4], ref["R"][:4]),
+          f"{name}: discrete R rows differ")
+    errs = {"R": float((got["R"][4:] - ref["R"][4:]).abs().max())}
+    check(errs["R"] <= TOL["pos/quat/vel"], f"{name}: R rows err {errs['R']}")
+    for k, tol in (("OBS", TOL["obs"]), ("REW", TOL["reward"]),
+                   ("ACT", POLICY_TOL), ("LOGP", POLICY_TOL),
+                   ("VAL", POLICY_TOL)):
+        if k in got:
+            errs[k] = float((got[k] - ref[k]).abs().max())
+            check(errs[k] <= tol, f"{name}: {k} err {errs[k]} > {tol}")
+    for k in ("GG", "OO", "EP", "DONE", "INFO"):
+        if k in got:
+            check(torch.equal(got[k], ref[k]), f"{name}: {k} differs")
+    errs["max"] = max(float((got[k] - ref[k]).abs().max()) for k in got)
     return errs
 
 
@@ -165,6 +257,456 @@ def profile_steps(env, rows, draws, kw, step_fn, n=64):
             "idle_share": max(0.0, 1.0 - n * kern / count / wall)}
 
 
+class PlainCalls:
+    """Counts calls of the plain versions while it is entered: a path on
+    the card must make none."""
+
+    NAMES = (("race_step", "race_step_fused_plain"),
+             ("race_step", "policy_forward_plain"),
+             ("race_window", "race_window_plain"),
+             ("race_rollout", "race_rollout_plain"),
+             ("race_rollout", "step_core_plain"))
+
+    def __init__(self, race_step, race_window, race_rollout):
+        self.mods = {"race_step": race_step, "race_window": race_window,
+                     "race_rollout": race_rollout}
+        self.calls = {}
+
+    def __enter__(self):
+        self.orig = {}
+        for mod, name in self.NAMES:
+            fn = getattr(self.mods[mod], name)
+            self.orig[(mod, name)] = fn
+            self.calls[name] = 0
+
+            def wrapped(*a, _fn=fn, _name=name, **k):
+                self.calls[_name] += 1
+                return _fn(*a, **k)
+
+            setattr(self.mods[mod], name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.orig.items():
+            setattr(self.mods[mod], name, fn)
+
+
+class LaunchCount(dict):
+    """Sets every kernel's launch count to 0 on entry; on exit holds the
+    launches made inside, by kernel (the step kernel with and without its
+    policy option apart), and adds them to ``totals``."""
+
+    def __init__(self, race_step, race_window, race_rollout, totals):
+        super().__init__()
+        self.fns = (race_step.race_step_fused, race_window.race_window,
+                    race_rollout.race_rollout)
+        self.totals = totals
+
+    def __enter__(self):
+        for fn in self.fns:
+            fn.launches = 0
+        self.fns[0].policy_launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        step, window, rollout = self.fns
+        self.update({"race_window": window.launches,
+                     "race_step_fused": step.launches - step.policy_launches,
+                     "race_step_fused[policy]": step.policy_launches,
+                     "race_rollout": rollout.launches})
+        for k, v in self.items():
+            self.totals[k] += v
+
+
+def policy_pack(env, hidden, seed=3):
+    """The pack of a random ActorCritic (log_std -1: calm flights)."""
+    from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import (
+        pack_policy_params,
+    )
+    from gym_pybullet_adrp_tpu_torch.models.policy import ActorCritic
+
+    net = ActorCritic(env.obs_size, 4, hidden,
+                      generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        net.log_std.fill_(-1.0)
+    return pack_policy_params(net.to(env.device))
+
+
+def k_steps(race_step, env, st, d, K, A=None, pack=None, obs=None,
+            actn=None, hidden=(64, 64), telemetry=True):
+    """K race_step launches with a rollout's inputs; returns the outputs
+    stacked as race_rollout returns them (dict by ``ROLL_OUT`` name)."""
+    from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import RowRaceState
+
+    def at(x, k):
+        return None if x is None else x[k if x.shape[0] > 1 else 0]
+
+    outs = []
+    for k in range(K):
+        pol = ({} if pack is None else
+               dict(policy_pack=pack, obs_rows=obs, actn=actn[k],
+                    policy_hidden=hidden))
+        o = race_step.race_step_fused(
+            env.kf, env.km, env.arm, env.ground_z, st.S,
+            None if A is None else A[k], st.R, st.GG, st.OO, st.EP,
+            at(d.RST, k), at(d.RSTG, k), at(d.RSTO, k),
+            n_ticks=env.n_ticks, dt=env.dt, spec_tail=env.spec_tail,
+            noise_rows=at(d.noise_rows, k), telemetry=telemetry, **pol)
+        st, obs = RowRaceState(*o[:5]), o[5]
+        outs.append(dict(zip(STEP_OUT, o)))
+    res = dict(zip(("S", "R", "GG", "OO", "EP"), st))
+    for name in outs[0]:
+        if name not in res:
+            res[name] = torch.stack([o[name] for o in outs])
+    return res
+
+
+def phase7(dev, gen, eval_race, race_step, n_envs):
+    """race_step with its policy option against the plain version: three
+    consecutive steps of getting_started 1-drone and twogates 2-drone
+    COMPETE at 64-64, one step at 256-128, each from the same inputs."""
+    from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import RowRaceState
+
+    res = {"max_abs_err": 0.0}
+    for cfg, nd, hidden, n_cmp in (("getting_started", 1, (64, 64), 3),
+                                   ("twogates", 2, (64, 64), 3),
+                                   ("getting_started", 1, (256, 128), 1)):
+        env = eval_race.make_eval_env(cfg, n_envs, dev, seed=8, n_drones=nd)
+        pack = policy_pack(env, hidden)
+        st = env.reset()
+        obs = env.initial_obs_rows(st)
+        for i in range(10 + n_cmp):
+            actn = torch.randn((4, env.T, 128), generator=gen, device=dev)
+            d = env.step_draws()
+            args = (env.kf, env.km, env.arm, env.ground_z, st.S, None, st.R,
+                    st.GG, st.OO, st.EP, d.RST, d.RSTG, d.RSTO)
+            kw = dict(n_ticks=env.n_ticks, dt=env.dt,
+                      spec_tail=env.spec_tail, noise_rows=d.noise_rows,
+                      telemetry=True, policy_pack=pack, obs_rows=obs,
+                      actn=actn, policy_hidden=hidden)
+            out = race_step.race_step_fused(*args, **kw)
+            if i >= 10:
+                ref = race_step.race_step_fused_plain(*args, **kw)
+                torch.cuda.synchronize()
+                name = (f"race_step[policy {hidden[0]}-{hidden[1]}, {cfg} "
+                        f"N={nd} step {i}]")
+                errs = check_step(name, dict(zip(STEP_OUT, out)),
+                                  dict(zip(STEP_OUT, ref)))
+                res["max_abs_err"] = max(res["max_abs_err"], errs["max"])
+                print(f"[7] {name}: ACT err {errs['ACT']:.3g}, LOGP err "
+                      f"{errs['LOGP']:.3g}, VAL err {errs['VAL']:.3g}, OBS "
+                      f"err {errs['OBS']:.3g}, REW err {errs['REW']:.3g} "
+                      f"(tol {POLICY_TOL} on ACT/LOGP/VAL, phase 4's on the "
+                      f"rest)", flush=True)
+                out = ref
+            st, obs = RowRaceState(*out[:5]), out[5]
+        if (cfg, hidden) == ("getting_started", (64, 64)):
+            # the shape of the trainer's one-launch-per-step path
+            kw_t = dict(kw, telemetry=False)
+            inputs = args + (pack, obs, actn)
+
+            def kern():
+                return race_step.race_step_fused(*args, **kw_t)
+
+            def plain():
+                return race_step.race_step_fused_plain(*args, **kw_t)
+
+            res["ms"] = (kernel_ms(kern, "race_step_kernel")
+                         or cuda_ms(kern, 20))
+            res["plain_ms"] = cuda_ms(plain, 2, warmup=1)
+            res.update(bound(inputs, plain(), count_ops(plain)))
+            print(f"[7] race_step with the policy, getting_started 1 drone, "
+                  f"{n_envs} envs, 64-64: {res['ms']} ms on the device, "
+                  f"plain {res['plain_ms']:.4g} ms, bound "
+                  f"{res['bound_ms']:.4g} ms ({res['bound_by']}: "
+                  f"{res['ops']:.4g} ops, {res['bytes']:.4g} B)", flush=True)
+    return res
+
+
+def phase8(dev, gen, eval_race, race_step, race_rollout, n_envs):
+    """race_rollout against K race_step launches (bit for bit) in action
+    mode (K=3) and policy mode (K=16), and against its plain version
+    (K=3); times the trainer's K=16 policy launch."""
+    from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import RowRaceState
+
+    res = {"max_abs_err": 0.0}
+    cases = [("getting_started", 1, 3, False),
+             ("getting_started", 2, 3, False), ("level2", 1, 3, False),
+             ("getting_started", 1, 16, True)]
+    for cfg, nd, K, policy in cases:
+        env = eval_race.make_eval_env(cfg, n_envs, dev, seed=9, n_drones=nd)
+        st = env.reset()
+        for _ in range(5):
+            a = torch.rand((n_envs, nd, 4) if nd > 1 else (n_envs, 4),
+                           generator=gen, device=dev) * 2 - 1
+            st = env.step(st, a)[0]
+        obs = env.initial_obs_rows(st)
+        seq = torch.rand((K, 4, env.T, 128), generator=gen,
+                         device=dev) * 2 - 1
+        d = env.stacked_draws(K)
+        pack = policy_pack(env, (64, 64)) if policy else None
+        pol = ({} if pack is None else
+               dict(policy_pack=pack, obs_rows=obs, actn_seq=seq))
+        kw = dict(n_ticks=env.n_ticks, dt=env.dt, spec_tail=env.spec_tail,
+                  noise_rows_seq=d.noise_rows, telemetry=True)
+        A = None if policy else seq
+        args = (env.kf, env.km, env.arm, env.ground_z, st.S, A, st.R, st.GG,
+                st.OO, st.EP, d.RST, d.RSTG, d.RSTO)
+        got = dict(zip(ROLL_OUT, race_rollout.race_rollout(*args, **pol,
+                                                           **kw)))
+        ref = k_steps(race_step, env, st, d, K, A=A, pack=pack, obs=obs,
+                      actn=seq)
+        torch.cuda.synchronize()
+        name = (f"race_rollout[{'policy' if policy else 'actions'}, {cfg} "
+                f"N={nd}, K={K}]")
+        check(got.keys() == ref.keys(), f"{name}: outputs {list(got)}")
+        for k in got:
+            check(torch.equal(got[k], ref[k]), f"{name}: {k} differs from "
+                  f"{K} race_step launches")
+        print(f"[8] {name}: equal to {K} race_step launches, bit for bit "
+              f"({sorted(got)})", flush=True)
+        if cfg == "level2":
+            plain = dict(zip(ROLL_OUT, race_rollout.race_rollout_plain(
+                *args, **pol, **kw)))
+            errs = check_step(name + " vs plain", got, plain)
+            res["max_abs_err"] = max(res["max_abs_err"], errs["max"])
+            print(f"[8] {name} vs its plain version: OBS err "
+                  f"{errs['OBS']:.3g}, REW err {errs['REW']:.3g}, max abs "
+                  f"err {errs['max']:.3g}", flush=True)
+        if policy:
+            # vs plain on the first 3 steps, then the trainer's launch
+            k3 = dict(pol, actn_seq=seq[:3])
+            d3 = type(d)(None, d.RST[:3], d.RSTG[:3], d.RSTO[:3])
+            args3 = args[:10] + (d3.RST, d3.RSTG, d3.RSTO)
+            kw3 = dict(kw, noise_rows_seq=None)
+            got3 = dict(zip(ROLL_OUT, race_rollout.race_rollout(
+                *args3, **k3, **kw3)))
+            plain3 = dict(zip(ROLL_OUT, race_rollout.race_rollout_plain(
+                *args3, **k3, **kw3)))
+            errs = check_step(name + " K=3 vs plain", got3, plain3)
+            res["max_abs_err"] = max(res["max_abs_err"], errs["max"])
+            print(f"[8] race_rollout[policy, K=3] vs its plain version: ACT "
+                  f"err {errs['ACT']:.3g}, VAL err {errs['VAL']:.3g}, OBS "
+                  f"err {errs['OBS']:.3g}, max abs err {errs['max']:.3g}",
+                  flush=True)
+            kw_t = dict(kw, telemetry=False)
+
+            def kern():
+                return race_rollout.race_rollout(*args, **pol, **kw_t)
+
+            def plain_fn():
+                return race_rollout.race_rollout_plain(*args, **pol, **kw_t)
+
+            res["ms"] = (kernel_ms(kern, "race_rollout_kernel", n=5)
+                         or cuda_ms(kern, 5))
+            res["plain_ms"] = cuda_ms(plain_fn, 1, warmup=0)
+            # the plain rollout is K identical plain steps: count one
+            step_ops = count_ops(lambda: race_rollout.race_rollout_plain(
+                *args3[:5], None, *args3[6:10], d.RST[:1], d.RSTG[:1],
+                d.RSTO[:1], **dict(pol, actn_seq=seq[:1]), **kw_t))
+            res.update(bound(args + (pack, obs, seq), kern(),
+                             K * step_ops))
+            print(f"[8] race_rollout[policy, getting_started 1 drone, "
+                  f"{n_envs} envs, K={K}]: {res['ms']} ms on the device per "
+                  f"launch, plain {res['plain_ms']:.4g} ms, bound "
+                  f"{res['bound_ms']:.4g} ms ({res['bound_by']}: "
+                  f"{res['ops']:.4g} ops, {res['bytes']:.4g} B)", flush=True)
+    return res
+
+
+def phase9(dev, n_envs):
+    """One PPO epoch (8 minibatches) on the card and on the CPU from the
+    same params, trajectory (a 4096 x 64 policy rollout on the card) and
+    block permutation."""
+    from gym_pybullet_adrp_tpu_torch import train_race
+    from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import (
+        make_policy_rollout,
+    )
+    from gym_pybullet_adrp_tpu_torch.rl import ppo
+
+    r = train_race.train(config="getting_started", n_envs=n_envs, n_steps=64,
+                         iters=0, fuse_policy=True, device=dev, log_every=0)
+    cfg, ts = r["cfg"], r["ts"]
+    _, override, _ = make_policy_rollout(r["env"], cfg.n_steps, 16)
+    ts, traj, _ = override(ts)
+    take = torch.randperm(cfg.batch_size // cfg.shuffle_block,
+                          generator=torch.Generator().manual_seed(0))
+    out = {}
+    for name, net in (("cpu", copy.deepcopy(ts.params).cpu()),
+                      ("cuda", ts.params)):
+        dv = next(net.parameters()).device
+        tr = type(traj)(*[x.to(dv) for x in traj])
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            adv, ret = ppo.compute_gae(cfg, tr, net(ts.last_obs.to(dv))[2])
+        tx = ppo.ClipAdam(cfg.lr, cfg.max_grad_norm)
+        opt, losses = ppo.minibatch_epoch(
+            cfg, tx, net, tx.init(list(net.parameters())), tr, adv, ret,
+            take.to(dv))
+        if dv.type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = ([p.detach().cpu() for p in net.parameters()],
+                     torch.stack(losses).cpu(), adv.cpu(),
+                     time.perf_counter() - t0)
+    errs = [float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+            for a, b in zip(out["cuda"][0], out["cpu"][0])]
+    adv_err = float((out["cuda"][2] - out["cpu"][2]).abs().max()
+                    / out["cpu"][2].abs().max())
+    loss_err = float(((out["cuda"][1] - out["cpu"][1]).abs()
+                      / out["cpu"][1].abs()).max())
+    print(f"[9] one PPO epoch (GAE + 8 minibatches of {cfg.batch_size // 8}, "
+          f"same params, trajectory and permutation): params on the card "
+          f"vs on the CPU max |diff| / max(1, |p|) = {max(errs):.3g} (tol "
+          f"{PPO_TOL}); advantages rel err {adv_err:.3g}; losses rel err "
+          f"{loss_err:.3g}; card {out['cuda'][3]:.3f} s, CPU "
+          f"{out['cpu'][3]:.3f} s", flush=True)
+    check(max(errs) <= PPO_TOL, f"PPO epoch: card vs CPU {max(errs)}")
+    return {"params_rel_err": max(errs), "adv_rel_err": adv_err,
+            "loss_rel_err": loss_err}
+
+
+def phase10(dev, gpu, eval_race, race_step, race_window, race_rollout, plain,
+            totals, n_envs=4096, iters=40):
+    """Train getting_started at 4096 envs through race_rollout with the
+    policy inside (40 iterations), then briefly through race_step with
+    and without the policy; save, reload and evaluate the policy."""
+    from gym_pybullet_adrp_tpu_torch import train_race
+    from gym_pybullet_adrp_tpu_torch.rl import checkpoint as ckpt
+
+    mods = (race_step, race_window, race_rollout, totals)
+    kw = dict(config="getting_started", n_envs=n_envs, n_steps=64,
+              hidden=(64, 64), shuffle_block=512, device=dev, log_every=10)
+    t0 = time.perf_counter()
+    with plain, LaunchCount(*mods) as la:
+        res = train_race.train(kernel_chunk=16, fuse_policy=True,
+                               iters=iters, **kw)
+    wall = time.perf_counter() - t0
+    m, times, cfg = res["metrics"], res["times"], res["cfg"]
+    check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+    check(la["race_rollout"] == 4 * iters and la["race_step_fused"] == 0
+          and la["race_step_fused[policy]"] == 0,
+          f"training launches {dict(la)}")
+    check(all(math.isfinite(x["loss"]) for x in m), "a non-finite loss")
+    first = sum(x["mean_reward"] for x in m[:5]) / 5
+    last = sum(x["mean_reward"] for x in m[-5:]) / 5
+    steady = times[1:]
+    phase_ms = {k: 1e3 * sum(t[k] for t in steady) / len(steady)
+                for k in steady[0]}
+    rate = cfg.batch_size / (phase_ms["iteration"] / 1e3)
+    print(f"[10] train(getting_started, {n_envs} envs, 64 steps, 64-64, "
+          f"kernel_chunk=16, fuse_policy, {iters} iters) in {wall:.1f} s: "
+          f"launches {dict(la)}; mean reward first 5 iters {first:.5g}, "
+          f"last 5 {last:.5g}; ms per iteration (iterations 2-{iters}): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in phase_ms.items())
+          + f"; {rate:.6g} env-steps/s on {gpu}", flush=True)
+    check(last > first, f"mean reward did not rise ({first} -> {last})")
+    # the device's idle share over one traced iteration
+    t_wall, events = traced(lambda: res["train_step"](res["ts"]))
+    busy = sum(us for _, _, us in events) / 1e3
+    top = sorted(events, key=lambda e: -e[2])[:5]
+    idle = max(0.0, 1.0 - busy / t_wall)
+    print(f"[10] one traced iteration: wall {t_wall:.4g} ms, device busy "
+          f"{busy:.4g} ms (idle share {idle:.3f}); top device time: "
+          + "; ".join(f"{k[:40]} x{c} {us / 1e3:.4g} ms" for k, c, us in top),
+          flush=True)
+
+    with plain, LaunchCount(*mods) as la0:
+        res0 = train_race.train(kernel_chunk=0, fuse_policy=True, iters=2,
+                                **kw)
+    check(la0["race_step_fused[policy]"] == 2 * 64
+          and la0["race_rollout"] == 0, f"kernel_chunk=0: {dict(la0)}")
+    with plain, LaunchCount(*mods) as la1:
+        res1 = train_race.train(fuse_policy=False, iters=5, **kw)
+    check(la1["race_step_fused"] == 5 * 64
+          and la1["race_step_fused[policy]"] == 0,
+          f"policy outside: {dict(la1)}")
+    check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+    alt_ms = {}
+    for label, r in (("kernel_chunk=0", res0), ("fuse_policy=False", res1)):
+        st = r["times"][1:]
+        alt_ms[label] = {k: 1e3 * sum(t[k] for t in st) / len(st)
+                         for k in st[0]}
+        print(f"[10] {label}: launches "
+              f"{dict(la0 if r is res0 else la1)}; ms per iteration "
+              + ", ".join(f"{k} {v:.4g}" for k, v in alt_ms[label].items()),
+              flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = ckpt.save_policy(Path(tmp) / "getting_started.msgpack",
+                                res["ts"].params)
+        net = ckpt.load_policy(path, dev)
+    for a, b in zip(net.parameters(), res["ts"].params.parameters()):
+        check(torch.equal(a, b), "the reloaded policy differs")
+    with plain, LaunchCount(*mods) as la2:
+        m_eval = eval_race.evaluate(net, "getting_started", 128, device=dev)
+    check(la2["race_step_fused"] > 0, f"evaluation launches {dict(la2)}")
+    check(math.isfinite(m_eval["mean_gates"]), f"evaluation {m_eval}")
+    print(f"[10] saved, reloaded, evaluate(128 envs) through race_step "
+          f"({la2['race_step_fused']} launches): {json.dumps(m_eval)}",
+          flush=True)
+    return {"metrics": m, "phase_ms": phase_ms, "env_steps_per_sec": rate,
+            "idle_share": idle, "busy_ms": busy, "wall_ms": t_wall,
+            "alt_phase_ms": alt_ms, "eval": m_eval}
+
+
+def phase11(dev, gen, gpu, eval_race, race_step, race_rollout, n_envs=4096):
+    """race_rollout in action mode at the workload of ``bench.py --impl
+    race --rollout_k 32``: 4096 envs, K=32, getting_started, 1 drone
+    COMPARE and 2 drones COMPETE; beside 32 race_step launches and the
+    plain version."""
+    from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import RowRaceState
+
+    K, out = 32, {}
+    for nd in (1, 2):
+        env = eval_race.make_eval_env("getting_started", n_envs, dev, seed=7,
+                                      n_drones=nd)
+        st = env.reset()
+        A = torch.rand((K, 4, env.T, 128), generator=gen, device=dev) * 2 - 1
+        d = env.stacked_draws(K)
+        kw = dict(n_ticks=env.n_ticks, dt=env.dt, spec_tail=env.spec_tail,
+                  telemetry=False)
+        args = (env.kf, env.km, env.arm, env.ground_z, st.S, A, st.R, st.GG,
+                st.OO, st.EP, d.RST, d.RSTG, d.RSTO)
+
+        def k5():
+            return race_rollout.race_rollout(*args, emit_obs=False, **kw)
+
+        def k4x32():
+            s = st
+            for k in range(K):
+                o = race_step.race_step_fused(
+                    env.kf, env.km, env.arm, env.ground_z, s.S, A[k], s.R,
+                    s.GG, s.OO, s.EP, d.RST[0], d.RSTG[0], d.RSTO[0], **kw)
+                s = RowRaceState(*o[:5])
+
+        r = {"k5_ms": kernel_ms(k5, "race_rollout_kernel", n=10),
+             "k5_loop_ms": cuda_ms(k5, 5)}
+        per = kernel_ms(k4x32, "race_step_kernel", n=2)
+        r["k4x32_ms"] = None if per is None else K * per
+        r["k4x32_loop_ms"] = cuda_ms(k4x32, 3)
+        r["plain_ms"] = cuda_ms(lambda: race_rollout.race_rollout_plain(
+            *args, emit_obs=False, **kw), 1, warmup=0)
+        # a launch of over a millisecond hides the host's enqueue, so the
+        # host loop's time stands in where the trace has no device time
+        dev_ms = r["k5_ms"] or r["k5_loop_ms"]
+        r["env_steps_per_sec"] = n_envs * K / dev_ms * 1e3
+
+        def shown(ms):
+            return "not measured" if ms is None else f"{ms:.4g} ms"
+
+        out[nd] = r
+        print(f"[11] race_rollout, getting_started {nd} drone(s) "
+              f"{'COMPETE' if nd > 1 else 'COMPARE'}, {n_envs} envs, K={K}, "
+              f"actions: {shown(r['k5_ms'])} on the device per launch, "
+              f"{r['k5_loop_ms']:.4g} ms per launch in a host loop "
+              f"({r['env_steps_per_sec']:.6g} env-steps/s from the "
+              f"{'device' if r['k5_ms'] else 'host-loop'} time); 32 "
+              f"race_step launches {shown(r['k4x32_ms'])} on the device, "
+              f"{r['k4x32_loop_ms']:.4g} ms in a host loop; plain "
+              f"{r['plain_ms']:.4g} ms; on {gpu}", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -175,7 +717,9 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from gym_pybullet_adrp_tpu_torch.ops import _build, race_step, race_window
+    from gym_pybullet_adrp_tpu_torch.ops import (
+        _build, race_rollout, race_step, race_window,
+    )
     from gym_pybullet_adrp_tpu_torch import eval_race
 
     dev = torch.device("cuda:0")
@@ -189,15 +733,16 @@ def main():
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.library()
+    _build.library("race_window")
     info = _build.build_info
     print(f"[2] build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {info.get('seconds', 0.0):.1f} s, "
-          f"cached={info.get('cached')}) -> {info['path']}", flush=True)
-    if out_dir and info.get("ptxas"):
+          f"(nvcc, one process per source in parallel, "
+          f"{info['seconds']:.1f} s; cached {info['cached']}) -> "
+          f"{sorted(info['paths'].values())}", flush=True)
+    if out_dir:
         (out_dir / "ptxas.txt").write_text(info["ptxas"])
-    for line in (info.get("ptxas") or "").splitlines():
-        if "registers" in line or "spill" in line:
+    for line in info["ptxas"].splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line:
             print(f"    {line.strip()}")
 
     results = {}
@@ -260,6 +805,10 @@ def main():
           f"{'not measured' if k3_dev is None else f'{k3_dev:.4g} ms'} on "
           f"the device, {k3['loop_ms']:.4g} ms per launch in a host loop; "
           f"plain {k3['plain_ms']:.4g} ms", flush=True)
+    k3.update(bound((st.S, W, noise), (st.S,), count_ops(
+        lambda: race_window.race_window_plain(
+            env.kf, env.km, env.arm, env.ground_z, st.S, W, env.n_ticks,
+            env.dt, noise))))
     results["race_window"] = k3
 
     # ---- 4. race_step kernel vs plain -----------------------------------------
@@ -268,7 +817,6 @@ def main():
         env = eval_race.make_eval_env(cfg, n_envs, dev, seed=5, n_drones=nd)
         env.telemetry = True
         st = env.reset()
-        n_done = 0
         for i in range(13):
             a = torch.rand((n_envs, nd, 4) if nd > 1 else (n_envs, 4),
                            generator=gen, device=dev) * 2 - 1
@@ -284,74 +832,40 @@ def main():
                 got = race_step.race_step_fused(*args_, **kw)
                 torch.cuda.synchronize()
                 name = f"race_step[{cfg} N={nd} step {i}]"
-                compare_s(name + " S", got[0], ref[0])
-                for j, lbl in ((1, "R"), (5, "OBS"), (6, "REW")):
-                    check(got[j].shape == ref[j].shape, f"{name} {lbl} shape")
-                    check(torch.isfinite(got[j]).all().item(),
-                          f"{name} {lbl} non-finite")
-                check(torch.equal(got[1][:4], ref[1][:4]),
-                      f"{name}: discrete R rows differ")
-                r_err = float((got[1][4:] - ref[1][4:]).abs().max())
-                check(r_err <= TOL["pos/quat/vel"],
-                      f"{name}: R rows err {r_err}")
-                o_err = float((got[5] - ref[5]).abs().max())
-                check(o_err <= TOL["obs"], f"{name}: OBS err {o_err}")
-                w_err = float((got[6] - ref[6]).abs().max())
-                check(w_err <= TOL["reward"], f"{name}: REW err {w_err}")
-                for j, lbl in ((2, "GG"), (3, "OO"), (4, "EP"), (7, "DONE"),
-                               (8, "INFO")):
-                    check(torch.equal(got[j], ref[j]),
-                          f"{name}: {lbl} differs")
-                n_done += int(ref[7].sum())
-                k4["max_abs_err"] = max(
-                    k4["max_abs_err"],
-                    max(float((g - r).abs().max())
-                        for g, r in zip(got, ref)))
-                print(f"[4] {name}: S ok, R err {r_err:.3g}, OBS err "
-                      f"{o_err:.3g}, REW err {w_err:.3g}, DONE/INFO/GG "
-                      f"equal ({int(ref[7].sum())} envs done)", flush=True)
+                errs = check_step(name, dict(zip(STEP_OUT, got)),
+                                  dict(zip(STEP_OUT, ref)))
+                k4["max_abs_err"] = max(k4["max_abs_err"], errs["max"])
+                print(f"[4] {name}: S ok, R err {errs['R']:.3g}, OBS err "
+                      f"{errs['OBS']:.3g}, REW err {errs['REW']:.3g}, "
+                      f"DONE/INFO/GG equal ({int(ref[7].sum())} envs done)",
+                      flush=True)
             st = st._replace(S=ref[0], R=ref[1], GG=ref[2], OO=ref[3],
                              EP=ref[4])
 
     # ---- 5. the slice: evaluate the shipped level1 policy ---------------------
-    calls = {"plain_step": 0, "plain_window": 0}
-
-    def counting(name, fn):
-        def wrapped(*a, **k):
-            calls[name] += 1
-            return fn(*a, **k)
-        return wrapped
-
-    orig_step_plain = race_step.race_step_fused_plain
-    orig_window_plain = race_window.race_window_plain
-    race_step.race_step_fused_plain = counting("plain_step", orig_step_plain)
-    race_window.race_window_plain = counting("plain_window",
-                                             orig_window_plain)
+    main_launches = {"race_window": 0, "race_step_fused": 0,
+                     "race_step_fused[policy]": 0, "race_rollout": 0}
+    plain = PlainCalls(race_step, race_window, race_rollout)
     policy = str(REPO / "results/level1_robust.msgpack")
-    race_step.race_step_fused.launches = 0
-    race_window.race_window.launches = 0
-    t0 = time.perf_counter()
-    m_fused = eval_race.evaluate(policy, "level1", 128, device=dev)
-    t_fused = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    m_unfused = eval_race.evaluate(policy, "level1", 128, device=dev,
-                                   fused=False)
-    t_unfused = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    launches = {"race_step_fused": race_step.race_step_fused.launches,
-                "race_window": race_window.race_window.launches}
-    race_step.race_step_fused_plain = orig_step_plain
-    race_window.race_window_plain = orig_window_plain
+    with plain, LaunchCount(race_step, race_window, race_rollout,
+                            main_launches) as launches:
+        t0 = time.perf_counter()
+        m_fused = eval_race.evaluate(policy, "level1", 128, device=dev)
+        t_fused = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m_unfused = eval_race.evaluate(policy, "level1", 128, device=dev,
+                                       fused=False)
+        t_unfused = time.perf_counter() - t0
+        torch.cuda.synchronize()
     print(f"[5] evaluate(level1_robust, level1, 128 envs) through "
           f"race_step ({t_fused:.1f} s): {json.dumps(m_fused)}", flush=True)
     print(f"[5] evaluate(..., fused=False) through race_window + plain tail "
           f"({t_unfused:.1f} s): {json.dumps(m_unfused)}", flush=True)
-    print(f"[5] launches in the main path: {launches}; plain versions "
-          f"called: {calls}", flush=True)
+    print(f"[5] launches in the serving path: {launches}; plain versions "
+          f"called: {plain.calls}", flush=True)
     check(launches["race_step_fused"] == 825, "race_step launch count")
     check(launches["race_window"] == 825, "race_window launch count")
-    check(calls == {"plain_step": 0, "plain_window": 0},
-          "a plain version ran on the main path")
+    check(not any(plain.calls.values()), "a plain version ran on the path")
     for label, m in (("fused", m_fused), ("unfused", m_unfused)):
         check(m["mean_gates"] >= 1.0,
               f"{label}: mean_gates {m['mean_gates']} < 1.0")
@@ -362,7 +876,7 @@ def main():
     env = eval_race.make_eval_env("getting_started", n_envs, dev, seed=7,
                                   n_drones=2)
     env.telemetry = False
-    steps = 256
+    steps, plain_steps = 256, 32
     acts = torch.rand((steps, n_envs, 2, 4), generator=gen, device=dev) * 2 - 1
     rows = [env.action_rows(acts[i]) for i in range(steps)]
     draws = env.step_draws()
@@ -387,19 +901,19 @@ def main():
 
     run(race_step.race_step_fused, 4)
     run(race_step.race_step_fused_plain, 2)
-    t_plain = [run(race_step.race_step_fused_plain, steps)]
+    t_plain = [run(race_step.race_step_fused_plain, plain_steps)]
     t_kern = [run(race_step.race_step_fused, steps),
               run(race_step.race_step_fused, steps)]
-    t_plain.append(run(race_step.race_step_fused_plain, steps))
+    t_plain.append(run(race_step.race_step_fused_plain, plain_steps))
     kern_rate = n_envs * steps / (sum(t_kern) / 2)
-    plain_rate = n_envs * steps / (sum(t_plain) / 2)
+    plain_rate = n_envs * plain_steps / (sum(t_plain) / 2)
     k4["loop_ms"] = sum(t_kern) / 2 / steps * 1e3
-    k4["plain_ms"] = sum(t_plain) / 2 / steps * 1e3
-    print(f"[6] step_fused, getting_started 2-drone COMPETE, {n_envs} envs, "
-          f"{steps} steps (plain, kernel, kernel, plain): kernel "
-          f"{kern_rate:.6g} env-steps/s ({k4['loop_ms']:.4g} ms/step), plain "
-          f"{plain_rate:.6g} env-steps/s ({k4['plain_ms']:.4g} ms/step) "
-          f"on {gpu}", flush=True)
+    k4["plain_ms"] = sum(t_plain) / 2 / plain_steps * 1e3
+    print(f"[6] step_fused, getting_started 2-drone COMPETE, {n_envs} envs "
+          f"(plain {plain_steps} steps, kernel {steps}, kernel {steps}, plain "
+          f"{plain_steps}): kernel {kern_rate:.6g} env-steps/s "
+          f"({k4['loop_ms']:.4g} ms/step), plain {plain_rate:.6g} "
+          f"env-steps/s ({k4['plain_ms']:.4g} ms/step) on {gpu}", flush=True)
 
     # where a kernel step's time goes: device time of the kernel launches
     # against the host clock over a short traced window
@@ -412,6 +926,15 @@ def main():
           f"{prof['idle_share']})", flush=True)
     k4["ms"] = (prof["kernel_ms"] / prof["launches"] if prof["launches"]
                 else k4["loop_ms"])
+    st = env.reset()
+    k4_in = (st.S, rows[0], st.R, st.GG, st.OO, st.EP, draws.RST,
+             draws.RSTG, draws.RSTO)
+
+    def k4_plain():
+        return race_step.race_step_fused_plain(env.kf, env.km, env.arm,
+                                               env.ground_z, *k4_in, **kw)
+
+    k4.update(bound(k4_in, k4_plain(), count_ops(k4_plain)))
     results["race_step_fused"] = k4
     scaling = {}
     for envs in (16384, 65536):
@@ -431,32 +954,60 @@ def main():
           "same state each launch): " + ", ".join(
               f"{k} envs {v[0]:.4g} ms = {v[1]:.6g} env-steps/s"
               for k, v in scaling.items()), flush=True)
+    del env_s, st, A, d, rows, acts
+
+    # ---- 7. race_step's policy option vs plain -------------------------------
+    results["race_step_fused[policy]"] = phase7(dev, gen, eval_race,
+                                                race_step, n_envs)
+
+    # ---- 8. race_rollout vs race_step launches, and vs plain ------------------
+    results["race_rollout"] = phase8(dev, gen, eval_race, race_step,
+                                     race_rollout, n_envs)
+
+    # ---- 9. the PPO epoch on the card vs on the CPU ---------------------------
+    ppo_err = phase9(dev, n_envs)
+
+    # ---- 10. training at full width -------------------------------------------
+    train_out = phase10(dev, gpu, eval_race, race_step, race_window,
+                        race_rollout, plain, main_launches)
+
+    # ---- 11. times: race_rollout at the bench workload ------------------------
+    times11 = phase11(dev, gen, gpu, eval_race, race_step, race_rollout)
 
     src = "gym_pybullet_adrp_tpu_torch/csrc/"
     kernels = [
         {"name": "race_window", "route": "cuda",
          "source": src + "race_window.cu",
-         "replaces": "gym_pybullet_adrp_tpu/ops/pallas_race.py:664",
-         "launches": launches["race_window"]},
+         "replaces": "gym_pybullet_adrp_tpu/ops/pallas_race.py:664"},
         {"name": "race_step_fused", "route": "cuda",
          "source": src + "race_step.cu",
-         "replaces": "gym_pybullet_adrp_tpu/ops/pallas_race_step.py:897",
-         "launches": launches["race_step_fused"]},
+         "replaces": "gym_pybullet_adrp_tpu/ops/pallas_race_step.py:897"},
+        {"name": "race_step_fused[policy]", "route": "cuda",
+         "source": src + "policy.cuh",
+         "replaces": "gym_pybullet_adrp_tpu/ops/pallas_race_step.py:92"},
+        {"name": "race_rollout", "route": "cuda",
+         "source": src + "race_rollout.cu",
+         "replaces": "gym_pybullet_adrp_tpu/ops/pallas_race_step.py:750"},
     ]
     for k in kernels:
         r = results[k["name"]]
-        k.update(max_abs_err=r["max_abs_err"], ms=r["ms"],
-                 plain_ms=r["plain_ms"])
+        k.update(launches=main_launches[k["name"]],
+                 max_abs_err=r["max_abs_err"], ms=r["ms"],
+                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                 bound_by=r["bound_by"], library_ms=None)
+        check(k["launches"] > 0, f"{k['name']}: no launch on its path")
     if out_dir:
         (out_dir / "chip_smoke_metrics.json").write_text(json.dumps({
-            "device": gpu, "kernels": kernels,
+            "device": gpu, "kernels": kernels, "results": results,
             "eval_fused": m_fused, "eval_unfused": m_unfused,
             "env_steps_per_sec": {"kernel": kern_rate, "plain": plain_rate},
             "loop_ms": {"race_window": results["race_window"]["loop_ms"],
                         "race_step_fused": k4["loop_ms"]},
             "profile": prof, "scaling": scaling,
             "seconds": {"eval_fused": t_fused, "eval_unfused": t_unfused},
-        }, indent=1))
+            "ppo_card_vs_cpu": ppo_err, "training": train_out,
+            "rollout_times": times11,
+        }, indent=1, default=str))
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,8 @@
   dicts of numpy, e.g. from ``rl.checkpoint.load_params``) to the port's
   ``ActorCritic``. A flax Dense ``kernel`` is (in, out); a torch
   ``Linear.weight`` is (out, in), so ``weight = kernel.T``.
+* ``flax_from_actor_critic``: its inverse, the params tree of the flax
+  module with the weights of a port ``ActorCritic`` (numpy float32).
 """
 
 import numpy as np
@@ -19,7 +21,9 @@ from .models.policy import ActorCritic
 _LEAVES = ("S", "R", "GG", "OO", "EP")
 
 
-def row_state_from_numpy(S, R, GG, OO, EP, device="cpu") -> RowRaceState:
+def row_state_from_numpy(S, R, GG, OO, EP, device="cuda") -> RowRaceState:
+    """The port's state from numpy blocks, on ``device`` (the card unless
+    the caller asks for the CPU)."""
     def conv(x):
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
 
@@ -58,3 +62,18 @@ def actor_critic_from_flax(params) -> ActorCritic:
         net.log_std.copy_(torch.from_numpy(
             np.array(p["log_std"], dtype=np.float32)))
     return net
+
+
+def flax_from_actor_critic(net: ActorCritic):
+    """The flax ActorCritic params tree ({"params": {"Dense_i": {"kernel",
+    "bias"}, "log_std"}}) of ``net``, as float32 numpy arrays."""
+    layers = (list(net.pi) + [net.pi_out] + list(net.vf) + [net.vf_out])
+
+    def np32(t):
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    p = {f"Dense_{i}": {"kernel": np.ascontiguousarray(np32(layer.weight).T),
+                        "bias": np32(layer.bias)}
+         for i, layer in enumerate(layers)}
+    p["log_std"] = np32(net.log_std)
+    return {"params": p}

@@ -1,11 +1,14 @@
 """Row-major race RL env: the packed state blocks carried across steps.
 
 Counterpart of gym_pybullet_adrp_tpu/envs/race_rl_rowfast.py
-(``RowRaceState`` :58, ``make_row_env`` :194 with its ``reset``,
-unfused ``step`` :648, ``step_fused`` :928, ``initial_obs`` :877,
-``_step_draws`` :1002 and ``initial_obs_rows`` :1174). CF2X drones, PYB
-physics, FULLSTATE pose-relative actions, COMPARE or COMPETE, any drone
-count, with or without reset randomization and per-tick disturbances.
+(``RowRaceState`` :58, ``pack_policy_params`` :128, ``make_row_env``
+:194 with its ``reset``, unfused ``step`` :648, ``step_fused`` :928,
+``initial_obs`` :877, ``_step_draws`` :1002, ``step_policy`` :1038,
+``_stacked_draws`` :1083, ``rollout_steps`` :1119, ``rollout_policy``
+:1148 and ``initial_obs_rows`` :1174, and ``make_policy_rollout``
+:1210). CF2X drones, PYB physics, FULLSTATE pose-relative actions,
+COMPARE or COMPETE, any drone count, with or without reset randomization
+and per-tick disturbances.
 
 The state is the fused kernel's blocks (ops/race_step.py), channel-major
 ``(C, T, 128)`` with the drone-major layout: with B envs (a multiple of
@@ -16,7 +19,10 @@ Random numbers: the per-step draws (the (20, 7, T, 128) wind/thrust noise
 block and the autoreset pose/inertia/geometry rows) come from the env's
 ``torch.Generator`` on the env's device and are passed to the kernels.
 They are not the JAX package's ``jax.random`` streams; a test that needs
-the same numbers on both sides passes ``draws`` explicitly.
+the same numbers on both sides passes ``draws`` explicitly. The K-step
+methods take K steps' draws stacked along a leading axis, drawn in the
+order K single steps would draw them, so one K5 launch and K steps give
+the same bits.
 """
 
 import math
@@ -26,6 +32,8 @@ import numpy as np
 import torch
 
 from ..models.drone import CF2X_LEGACY
+from ..models.policy import ActorCritic
+from ..ops import race_rollout as race_rollout_ops
 from ..ops import race_step as race_step_ops
 from ..ops import race_window as race_window_ops
 from ..utils.constants import GATE_Z_LOW, GATE_Z_TALL, RAD_TO_DEG
@@ -116,12 +124,19 @@ class RowRaceEnv:
     ``terminated``). ``obs`` is (B, C) or (B, N, C); ``reward`` is (B,)
     (drone-0 shaping, the reference RewardWrapper) or, with
     ``per_drone_reward``, (B, N); ``done`` (B,) is env-level.
+
+    ``end_after_gate`` > 0 ends an episode once drone 0 has passed that
+    many gates; ``elim_penalty`` scales the per-drone penalty of the step
+    a drone is eliminated; ``policy_hidden`` are the tower widths of the
+    policy packs ``step_policy``/``rollout_policy`` take. The env runs on
+    ``device``, the card unless the caller asks for the CPU.
     """
 
     def __init__(self, spec: RaceSpec, track: RaceTrack, n_envs: int,
-                 device="cpu", generator: Optional[torch.Generator] = None,
+                 device="cuda", generator: Optional[torch.Generator] = None,
                  per_drone_reward: bool = False, fused: bool = True,
-                 telemetry: bool = False):
+                 telemetry: bool = False, end_after_gate: int = 0,
+                 elim_penalty: float = 1.0, policy_hidden=(64, 64)):
         if not supports(spec):
             raise ValueError("row env: PYB physics and CF2X drones only")
         if n_envs % LANE:
@@ -141,6 +156,8 @@ class RowRaceEnv:
         self.per_drone_reward = per_drone_reward
         self.fused = fused
         self.telemetry = telemetry
+        self.elim_penalty = float(elim_penalty)
+        self.policy_hidden = tuple(int(h) for h in policy_hidden)
         self.gates = np.asarray(track.gates_nominal, dtype=np.float32)
         self.obstacles = np.asarray(track.obstacles_nominal,
                                     dtype=np.float32)
@@ -154,7 +171,7 @@ class RowRaceEnv:
             N, Tb, self.G, self.O, self.gates, self.obstacles,
             tuple(float(v) for v in bounds_hi),
             tuple(float(h) for h in heights),
-            self.compete, per_drone_reward, 0,   # no end_after_gate
+            self.compete, per_drone_reward, int(end_after_gate),
             spec.done_on_collision, spec.done_on_completion,
             float(spec.episode_len_sec), float(spec.pyb_freq),
             self.drone_r, self.half_h,
@@ -170,7 +187,7 @@ class RowRaceEnv:
         self._init_pos = [self._const_rows(init_pos[:, k]) for k in range(3)]
         self._init_rpy = [self._const_rows(init_rpy[:, k]) for k in range(3)]
         # fully deterministic configs draw the same reset rows every step
-        self._static_draws = None
+        self._static_draws = self._static_stack = None
         if not (spec.random_drone_state or spec.random_gates_obstacles
                 or spec.random_drone_inertia or spec.disturbances):
             self._static_draws = self._sample_draws()
@@ -373,6 +390,7 @@ class RowRaceEnv:
             state.EP, draws.RST, draws.RSTG, draws.RSTO,
             n_ticks=self.n_ticks, dt=self.dt, spec_tail=self.spec_tail,
             noise_rows=draws.noise_rows, telemetry=self.telemetry,
+            elim_penalty=self.elim_penalty,
         )
         return self._step_out(out)
 
@@ -409,7 +427,7 @@ class RowRaceEnv:
         out = race_step_ops.tail_plain(
             self._tc, self.n_ticks, S, state.R, state.GG, state.OO,
             state.EP, draws.RST, draws.RSTG, draws.RSTO,
-            telemetry=self.telemetry,
+            telemetry=self.telemetry, elim_penalty=self.elim_penalty,
         )
         res = tuple(out[k] for k in race_step_ops._OUT_ORDER)
         return self._step_out(res + ((out["INFO"],)
@@ -437,13 +455,251 @@ class RowRaceEnv:
         }
         return new_state, obs, reward, done, info
 
+    # ---- the policy inside the step, and K steps per launch -----------------
+
+    def stacked_draws(self, K) -> StepDraws:
+        """The random inputs of K steps, stacked along a leading K axis and
+        drawn in the order K ``step_draws`` calls would draw them. Fully
+        deterministic configs give one shared (1, ...) block."""
+        if self._static_draws is not None:
+            if self._static_stack is None:
+                d = self._static_draws
+                self._static_stack = StepDraws(
+                    None, d.RST[None], d.RSTG[None], d.RSTO[None])
+            return self._static_stack
+        steps = [self._sample_draws() for _ in range(K)]
+        noise = (None if steps[0].noise_rows is None
+                 else torch.stack([d.noise_rows for d in steps]))
+        return StepDraws(noise, *[torch.stack([getattr(d, f) for d in steps])
+                                  for f in ("RST", "RSTG", "RSTO")])
+
+    def _kernel_kw(self):
+        return dict(n_ticks=self.n_ticks, dt=self.dt,
+                    spec_tail=self.spec_tail, elim_penalty=self.elim_penalty)
+
+    def step_policy(self, state: RowRaceState, obs_rows, pack, actn,
+                    draws=None):
+        """One step with the policy inside the race_step kernel: the
+        ActorCritic forward and Gaussian sample from the previous obs
+        ``obs_rows`` (C, T, 128), the pack ``pack`` (``pack_policy_params``)
+        and the draws ``actn`` (4, T, 128), then the env step. Returns
+        ``(state, obs_rows', tr)``, ``tr`` the trajectory rows: unclipped
+        ``action`` (4, T, 128), ``logp``/``value``/``reward`` (T, 128) and
+        ``done`` (Tb, 128)."""
+        if draws is None:
+            draws = self.step_draws()
+        out = race_step_ops.race_step_fused(
+            self.kf, self.km, self.arm, self.ground_z, state.S, None,
+            state.R, state.GG, state.OO, state.EP, draws.RST, draws.RSTG,
+            draws.RSTO, noise_rows=draws.noise_rows, telemetry=False,
+            policy_pack=pack, obs_rows=obs_rows, actn=actn,
+            policy_hidden=self.policy_hidden, **self._kernel_kw())
+        S2, R2, GG2, OO2, EP2, OBS, REW, DONE, ACT, LOGP, VAL = out
+        tr = {"action": ACT, "logp": LOGP, "value": VAL, "reward": REW,
+              "done": DONE}
+        return RowRaceState(S2, R2, GG2, OO2, EP2), OBS, tr
+
+    def rollout_steps(self, state: RowRaceState, action, draws=None):
+        """K steps in one race_rollout launch, equal to K ``step_fused``
+        calls. ``action`` (K, B, 4) or (K, B, N, 4) in [-1, 1]; ``draws``
+        from ``stacked_draws(K)``. Returns (state', REW (K, T, 128),
+        DONE (K, Tb, 128))."""
+        K = action.shape[0]
+        a = torch.clamp(action.to(self.device, torch.float32), -1.0, 1.0)
+        a = a * self.action_scale
+        if a.dim() == 3:
+            a = a[:, :, None, :]
+        rows = a.permute(0, 3, 2, 1).reshape(K, 4, self.T, LANE).contiguous()
+        if draws is None:
+            draws = self.stacked_draws(K)
+        out = race_rollout_ops.race_rollout(
+            self.kf, self.km, self.arm, self.ground_z, state.S, rows,
+            state.R, state.GG, state.OO, state.EP, draws.RST, draws.RSTG,
+            draws.RSTO, noise_rows_seq=draws.noise_rows, telemetry=False,
+            emit_obs=False, **self._kernel_kw())
+        return RowRaceState(*out[:5]), out[5], out[6]
+
+    def rollout_policy(self, state: RowRaceState, obs_rows, pack, actn_seq,
+                       draws=None):
+        """K policy steps in one race_rollout launch, equal to K
+        ``step_policy`` calls. Returns ``(state', obs_rows', tr)`` with
+        ``tr`` stacked (K, ...): the post-step ``obs`` and ``action``,
+        ``logp``, ``value``, ``reward``, ``done``."""
+        K = actn_seq.shape[0]
+        if draws is None:
+            draws = self.stacked_draws(K)
+        out = race_rollout_ops.race_rollout(
+            self.kf, self.km, self.arm, self.ground_z, state.S, None,
+            state.R, state.GG, state.OO, state.EP, draws.RST, draws.RSTG,
+            draws.RSTO, noise_rows_seq=draws.noise_rows, telemetry=False,
+            emit_obs=True, policy_pack=pack, obs_rows=obs_rows,
+            actn_seq=actn_seq, policy_hidden=self.policy_hidden,
+            **self._kernel_kw())
+        S2, R2, GG2, OO2, EP2, REW, DONE, OBS, ACT, LOGP, VAL = out
+        tr = {"obs": OBS, "action": ACT, "logp": LOGP, "value": VAL,
+              "reward": REW, "done": DONE}
+        return RowRaceState(S2, R2, GG2, OO2, EP2), OBS[-1], tr
+
+
+def pack_policy_params(net: ActorCritic):
+    """The in-kernel policy pack (ops/race_step.policy_layout) of ``net``,
+    without gradients; rebuilt once per PPO iteration from the live
+    weights."""
+    if len(net.hidden) != 2:
+        raise ValueError("the policy pack takes two hidden layers per tower")
+    layers = [net.pi[0], net.pi[1], net.pi_out,
+              net.vf[0], net.vf[1], net.vf_out]
+    with torch.no_grad():
+        return race_step_ops.pack_policy(
+            net.obs_dim, net.hidden,
+            [lay.weight for lay in layers] + [lay.bias for lay in layers]
+            + [net.log_std])
+
 
 def make_row_env(spec: RaceSpec, track: RaceTrack, n_envs: int,
-                 device="cpu", generator: Optional[torch.Generator] = None,
+                 device="cuda", generator: Optional[torch.Generator] = None,
                  telemetry: bool = False, per_drone_reward: bool = False,
-                 fused: bool = True) -> RowRaceEnv:
-    """Build the row env on ``device``; draws come from ``generator`` (a
-    generator on that device, seeded 0 when None)."""
+                 fused: bool = True, end_after_gate: int = 0,
+                 elim_penalty: float = 1.0,
+                 policy_hidden=(64, 64)) -> RowRaceEnv:
+    """Build the row env on ``device`` (the card unless the caller asks
+    for the CPU); draws come from ``generator`` (a generator on that
+    device, seeded 0 when None)."""
     return RowRaceEnv(spec, track, n_envs, device=device,
                       generator=generator, per_drone_reward=per_drone_reward,
-                      fused=fused, telemetry=telemetry)
+                      fused=fused, telemetry=telemetry,
+                      end_after_gate=end_after_gate,
+                      elim_penalty=elim_penalty, policy_hidden=policy_hidden)
+
+
+def _ep_account(ep_ret, ep_len, rew, done, N):
+    """Episode return/length bookkeeping for one step's (rew (T, 128),
+    done (Tb, 128)) rows; returns the carried rows and the finished
+    episodes' return (NaN elsewhere) and length (-1 elsewhere)."""
+    done_rows = done.repeat(N, 1) > 0.5
+    ep_ret2 = ep_ret + rew
+    ep_len2 = ep_len + 1.0
+    fin_ret = torch.where(done_rows, ep_ret2, float("nan"))
+    fin_len = torch.where(done_rows, ep_len2, -1.0)
+    return (torch.where(done_rows, 0.0, ep_ret2),
+            torch.where(done_rows, 0.0, ep_len2), fin_ret, fin_len)
+
+
+def make_policy_rollout(env: RowRaceEnv, n_steps: int, kernel_chunk: int = 16):
+    """The policy-in-kernel PPO rollout pieces for a fused row env.
+
+    ``kernel_chunk`` > 0 runs the rollout through race_rollout (K policy
+    and env steps per launch) whenever it divides ``n_steps``; 0 keeps
+    one race_step launch per step. Both draw the same numbers in the same
+    order, so they give the same trajectories bit for bit.
+
+    Returns ``(batched_reset, rollout_override, adapter_step)``:
+    ``batched_reset() -> ((row_state, obs_rows), flat_obs)`` (the env
+    state carries the row-form obs), ``rollout_override(ts) -> (ts, traj,
+    metrics)`` for ``rl.ppo.make_ppo_core``, and an ``EnvAdapter.step``
+    for the tuple state.
+    """
+    from ..rl.ppo import Transition
+
+    if not env.fused:
+        raise ValueError("the policy rollout needs a fused row env")
+    B, N, Tb, T = env.n_envs, env.N, env.Tb, env.T
+    C = env.obs_size
+
+    def rows_to_flat(x):
+        # (k, T, 128) drone-major rows -> (k, B*N) env-major
+        k = x.shape[0]
+        return x.reshape(k, N, B).permute(0, 2, 1).reshape(k, B * N)
+
+    def chrows_to_flat(x, ch):
+        # (k, ch, T, 128) -> (k, B*N, ch)
+        k = x.shape[0]
+        return x.reshape(k, ch, N, B).permute(0, 3, 2, 1).reshape(
+            k, B * N, ch)
+
+    def flat_to_rows(x):
+        # (B*N,) env-major -> (T, 128) drone-major rows
+        return x.reshape(B, N).T.reshape(T, LANE)
+
+    def batched_reset():
+        st = env.reset()
+        obs_rows = env.initial_obs_rows(st)
+        return (st, obs_rows), chrows_to_flat(obs_rows[None], C)[0]
+
+    use_chunks = bool(kernel_chunk) and n_steps % kernel_chunk == 0
+
+    def rollout_override(ts):
+        actn = torch.randn((n_steps, 4, T, LANE), generator=ts.rng,
+                           device=env.device)
+        pack = pack_policy_params(ts.params)
+        st, obs_rows = ts.env_state
+        ep_ret = flat_to_rows(ts.ep_return)
+        ep_len = flat_to_rows(ts.ep_len.to(torch.float32))
+        ys = {k: [] for k in ("obs", "action", "logp", "value", "reward",
+                              "done", "fin_ret", "fin_len")}
+
+        def account(tr_rew, tr_done):
+            nonlocal ep_ret, ep_len
+            ep_ret, ep_len, fin_ret, fin_len = _ep_account(
+                ep_ret, ep_len, tr_rew, tr_done, N)
+            ys["fin_ret"].append(fin_ret)
+            ys["fin_len"].append(fin_len)
+
+        if use_chunks:
+            K = kernel_chunk
+            for c in range(n_steps // K):
+                st, obs_last, tr = env.rollout_policy(
+                    st, obs_rows, pack, actn[c * K:(c + 1) * K])
+                # Transition.obs is the pre-step obs each action saw
+                ys["obs"].append(torch.cat([obs_rows[None], tr["obs"][:-1]]))
+                for k in ("action", "logp", "value", "reward", "done"):
+                    ys[k].append(tr[k])
+                for i in range(K):
+                    account(tr["reward"][i], tr["done"][i])
+                obs_rows = obs_last
+            seq = {k: torch.cat(v) for k, v in ys.items()
+                   if k not in ("fin_ret", "fin_len")}
+        else:
+            for i in range(n_steps):
+                st, obs2, tr = env.step_policy(st, obs_rows, pack, actn[i])
+                ys["obs"].append(obs_rows)
+                for k in ("action", "logp", "value", "reward", "done"):
+                    ys[k].append(tr[k])
+                account(tr["reward"], tr["done"])
+                obs_rows = obs2
+            seq = {k: torch.stack(v) for k, v in ys.items()
+                   if k not in ("fin_ret", "fin_len")}
+        done_flat = seq["done"].reshape(n_steps, B) > 0.5
+        if N > 1:
+            done_flat = done_flat.repeat_interleave(N, dim=1)
+        # the flat (time, batch, ...) layout, materialised once
+        traj = Transition(
+            obs=chrows_to_flat(seq["obs"], C).contiguous(),
+            action=chrows_to_flat(seq["action"], 4).contiguous(),
+            logp=rows_to_flat(seq["logp"]).contiguous(),
+            value=rows_to_flat(seq["value"]).contiguous(),
+            reward=rows_to_flat(seq["reward"]).contiguous(),
+            done=done_flat,
+        )
+        metrics = {
+            "finished_return": rows_to_flat(torch.stack(ys["fin_ret"])),
+            "finished_len": rows_to_flat(
+                torch.stack(ys["fin_len"])).to(torch.int32),
+        }
+        ts = ts._replace(
+            env_state=(st, obs_rows),
+            last_obs=chrows_to_flat(obs_rows[None], C)[0],
+            ep_return=rows_to_flat(ep_ret[None])[0],
+            ep_len=rows_to_flat(ep_len[None])[0].to(torch.int32),
+        )
+        return ts, traj, metrics
+
+    def adapter_step(env_state, action):
+        st, _ = env_state
+        act = action.reshape(B, N, 4) if N > 1 else action
+        st2, obs, rew, done = env.step(st, act)[:4]
+        obs_rows = obs.reshape(B, N, C).permute(2, 1, 0).reshape(C, T, LANE)
+        return ((st2, obs_rows), obs.reshape(B * N, C), rew.reshape(-1),
+                done.repeat_interleave(N) if N > 1 else done)
+
+    return batched_reset, rollout_override, adapter_step

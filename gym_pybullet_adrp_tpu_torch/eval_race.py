@@ -111,10 +111,11 @@ def race_metrics(cgs, fins, els, dones, num_gates, steps_per_ctrl,
 
 
 def evaluate(policy, config_name="getting_started", n_envs=128,
-             device="cpu", stochastic=False, seed=42, n_drones=1,
+             device="cuda", stochastic=False, seed=42, n_drones=1,
              fused=True):
     """Evaluate ``policy`` (an ``ActorCritic`` or the path of a flax
-    artifact) for one full episode horizon; returns the metrics dict of
+    artifact) for one full episode horizon on ``device`` (the card unless
+    the caller asks for the CPU); returns the metrics dict of
     scripts/eval_race.evaluate."""
     env = make_eval_env(config_name, n_envs, device, seed, n_drones, fused)
     net = (policy if isinstance(policy, ActorCritic)

@@ -1,11 +1,13 @@
 """Build the race kernels with nvcc at first use and bind them with ctypes.
 
-``library()`` compiles ``csrc/race_window.cu`` and ``csrc/race_step.cu``
-into one shared library with a plain C interface, for ``sm_90a``
-(Hopper), under ``gym_pybullet_adrp_tpu_torch/_build/`` (listed in
-``.gitignore``). The file name carries a hash of the sources and flags, so
-an edited source is rebuilt and a stale library is never loaded. Only
-sources in this package are compiled; nothing is downloaded.
+``library(name)`` returns the shared library of ``csrc/<name>.cu``, with
+its plain C interface, built for ``sm_90a`` (Hopper) under
+``gym_pybullet_adrp_tpu_torch/_build/`` (listed in ``.gitignore``). The
+first call compiles every source that has no library yet, one nvcc per
+source, all started together. A file name carries a hash of its source,
+the shared headers and the flags, so an edited source is rebuilt and a
+stale library is never loaded. Only sources in this package are
+compiled; nothing is downloaded.
 
 Flags: ``-fmad=false`` keeps every multiply and add separately rounded,
 as PyTorch's elementwise kernels round them, so each kernel agrees with
@@ -24,8 +26,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("race_window.cu", "race_step.cu")
-HEADERS = ("race_window.cuh",)
+SOURCES = ("race_window", "race_step", "race_rollout")
+HEADERS = ("race_window.cuh", "race_step.cuh", "policy.cuh")
 ARCH = "sm_90a"
 NVCC_FLAGS = (
     f"-gencode=arch=compute_{ARCH[3:]},code={ARCH}",
@@ -34,7 +36,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lib = None
+_libs = {}
 build_info = {}
 
 
@@ -54,55 +56,74 @@ def find_nvcc() -> str:
     )
 
 
-def _digest() -> str:
+def _target(name) -> Path:
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for fname in (name + ".cu",) + HEADERS:
+        h.update(fname.encode())
+        h.update((CSRC / fname).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
+    return BUILD_DIR / f"libadrp_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists;
-    returns its path. Records ``build_info`` (seconds, ptxas report)."""
-    out = BUILD_DIR / f"libadrp_race_{_digest()}.so"
-    if out.exists():
-        build_info.update(path=str(out), seconds=0.0, cached=True)
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+def build() -> dict:
+    """Compile every source without a library for its current text, in
+    parallel; returns {name: library path}. Records ``build_info``
+    (wall seconds, which were cached, the ptxas report)."""
+    targets = {name: _target(name) for name in SOURCES}
+    todo = {n: t for n, t in targets.items() if not t.exists()}
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
-    os.replace(tmp, out)
-    build_info.update(path=str(out), seconds=secs, cached=False,
-                      ptxas=res.stderr + res.stdout)
-    return out
+    procs = {}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = find_nvcc()
+        for name, out in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (cmd, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    reports, failed = [], []
+    for name, (cmd, tmp, proc) in procs.items():
+        text = proc.communicate()[0]
+        reports.append(f"== {name}.cu\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{text}")
+        else:
+            os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    build_info.update(
+        paths={n: str(t) for n, t in targets.items()},
+        seconds=time.perf_counter() - t0,
+        cached=sorted(set(SOURCES) - set(todo)),
+        ptxas="\n".join(reports),
+    )
+    return targets
 
 
-def library():
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def library(name):
+    """The loaded library of ``csrc/<name>.cu`` (all built on first call)."""
+    if not _libs:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.adrp_race_window.argtypes = [vp, vp, vp, vp, ll, vp, vp]
-        lib.adrp_race_window.restype = i
-        lib.adrp_race_step.argtypes = [vp, vp, vp]
-        lib.adrp_race_step.restype = i
-        lib.adrp_error_string.argtypes = [i]
-        lib.adrp_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        sigs = {
+            "race_window": ("adrp_race_window", [vp, vp, vp, vp, ll, vp, vp]),
+            "race_step": ("adrp_race_step", [vp, vp, vp]),
+            "race_rollout": ("adrp_race_rollout", [vp, vp, vp]),
+        }
+        libs = {}
+        for n, path in build().items():
+            lib = ctypes.CDLL(str(path))
+            fn, argtypes = sigs[n]
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = i
+            libs[n] = lib
+        libs["race_window"].adrp_error_string.argtypes = [i]
+        libs["race_window"].adrp_error_string.restype = ctypes.c_char_p
+        _libs.update(libs)
+    return _libs[name]
 
 
 def error_string(err: int) -> str:
-    return f"{err} ({library().adrp_error_string(err).decode()})"
+    msg = library("race_window").adrp_error_string(err).decode()
+    return f"{err} ({msg})"

@@ -25,11 +25,18 @@ pre-autoreset rows [current_gate, eliminated, finished, ep_steps,
 terminated]. T = N * Tb with drone d of every env in rows
 [d*Tb, (d+1)*Tb).
 
-The JAX kernel's in-kernel policy option (``_policy_forward``) belongs
-to the training slice; ``race_step_fused`` raises if it is asked for.
+Policy option (``_policy_forward`` :92): with a policy pack, the previous
+obs rows (C, T, 128) and standard-normal draws (4, T, 128), the
+ActorCritic forward and Gaussian sample run first and their clipped
+action drives the step; three outputs follow the others: the unclipped
+ACT (4, T, 128), LOGP (T, 128) and VAL (T, 128). The pack is the port's
+own (``policy_layout``): each weight compact, (out, in) row-major
+float32, then the biases and log_std. The JAX pack's (rows, 128)
+lane-broadcast blocks are a TPU tiling artifact.
 """
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -48,14 +55,106 @@ from .race_window import (
 R_CHANNELS = 14
 RST_CHANNELS = 10
 INFO_CHANNELS = 5
-# static capacity of the kernel's parameter block (csrc/race_step.cu)
+ACT_DIM = 4
+# static capacity of the kernel's parameter block (csrc/race_step.cuh)
 MAX_DRONES = 8
 MAX_GATES = 8
 MAX_OBSTACLES = 8
+# widest hidden layer the in-kernel policy takes (csrc/policy.cuh)
+MAX_HIDDEN = 256
+LOG_2PI = math.log(2.0 * math.pi)
 
 
 def obs_channels(N, G, O, compete):
     return 12 + 5 * G + 4 * O + 1 + (6 * (N - 1) if compete and N > 1 else 0)
+
+
+# ---------------------------------------------------------------------------
+# the policy pack and the plain policy forward
+
+
+class PolicyLayout(ctypes.Structure):
+    """Widths and float offsets of the policy pack; mirrors ``struct
+    PolicyLayout`` in csrc/policy.cuh."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "C", "H1", "H2", "w1", "w2", "w3", "v1", "v2", "v3",
+        "b1", "b2", "b3", "vb1", "vb2", "vb3", "log_std",
+    )]
+
+
+# (name, out, in) of every tensor in pack order; in == 0 marks a vector
+def _pack_entries(C, H1, H2):
+    return (("w1", H1, C), ("w2", H2, H1), ("w3", ACT_DIM, H2),
+            ("v1", H1, C), ("v2", H2, H1), ("v3", 1, H2),
+            ("b1", H1, 0), ("b2", H2, 0), ("b3", ACT_DIM, 0),
+            ("vb1", H1, 0), ("vb2", H2, 0), ("vb3", 1, 0),
+            ("log_std", ACT_DIM, 0))
+
+
+def policy_layout(C, hidden=(64, 64)):
+    """``(PolicyLayout, pack length)`` for obs size ``C`` and the two
+    tower widths ``hidden`` (counterpart of ``pp_layout`` :67)."""
+    H1, H2 = (int(h) for h in hidden)
+    if min(H1, H2) < 1 or max(H1, H2) > MAX_HIDDEN:
+        raise ValueError(
+            f"the policy pack takes two hidden layers of 1..{MAX_HIDDEN} "
+            f"(got {tuple(hidden)})")
+    lay = PolicyLayout(C=int(C), H1=H1, H2=H2)
+    off = 0
+    for name, out, inn in _pack_entries(int(C), H1, H2):
+        setattr(lay, name, off)
+        off += out * max(inn, 1)
+    return lay, off
+
+
+def pack_policy(C, hidden, tensors):
+    """The flat float32 pack from the tensors in ``_pack_entries`` order:
+    weights (out, in), then the biases and log_std."""
+    lay, n = policy_layout(C, hidden)
+    parts = []
+    for (name, out, inn), t in zip(_pack_entries(lay.C, lay.H1, lay.H2),
+                                   tensors):
+        shape = (out, inn) if inn else (out,)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"pack entry {name}: shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        parts.append(t.detach().reshape(-1).to(torch.float32))
+    pack = torch.cat(parts).contiguous()
+    assert pack.numel() == n
+    return pack
+
+
+def policy_forward_plain(pack, hidden, obs_rows, actn):
+    """Plain version of the in-kernel forward and sample (csrc/policy.cuh,
+    ``_policy_forward`` :92). ``obs_rows`` (C, T, 128), ``actn`` (4, T,
+    128) standard-normal draws. Returns (ACT unclipped (4, T, 128), LOGP
+    (T, 128), VAL (T, 128)). Every dot product accumulates over the inner
+    dimension in ascending order from 0 and adds the bias last, as the
+    kernel does, so the two agree to the bit on the card."""
+    lay, _ = policy_layout(obs_rows.shape[0], hidden)
+
+    def dense(w, b, out, inn, x, act):
+        W = pack[w:w + out * inn].reshape(out, inn)
+        acc = torch.zeros((out,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        for i in range(inn):
+            acc = acc + W[:, i, None, None] * x[i]
+        v = acc + pack[b:b + out][:, None, None]
+        return torch.tanh(v) if act else v
+
+    C, H1, H2 = lay.C, lay.H1, lay.H2
+    h = dense(lay.w1, lay.b1, H1, C, obs_rows, True)
+    h = dense(lay.w2, lay.b2, H2, H1, h, True)
+    mean = dense(lay.w3, lay.b3, ACT_DIM, H2, h, False)
+    v = dense(lay.v1, lay.vb1, H1, C, obs_rows, True)
+    v = dense(lay.v2, lay.vb2, H2, H1, v, True)
+    val = dense(lay.v3, lay.vb3, 1, H2, v, False)[0]
+    log_std = pack[lay.log_std:lay.log_std + ACT_DIM][:, None, None]
+    act = mean + torch.exp(log_std) * actn
+    contrib = -0.5 * (actn * actn + 2.0 * log_std + LOG_2PI)
+    logp = contrib[0] + contrib[1] + contrib[2] + contrib[3]
+    return act, logp, val
 
 
 def tail_consts(spec_tail, ground_z):
@@ -118,10 +217,19 @@ def tail_consts(spec_tail, ground_z):
 
 def step_core_plain(wc, tc, S0, A, Rb, gg, oo, ep_steps0, rst, gates_reset,
                     obst_reset, noise_rows=None, telemetry=False,
-                    elim_penalty=1.0):
-    """One env step over plain tensors; transcribes ``_step_core`` without
-    its policy option. ``wc``/``tc`` are ``window_consts(...)`` and
-    ``tail_consts(...)``. Returns a dict of output blocks."""
+                    elim_penalty=1.0, policy=None):
+    """One env step over plain tensors; transcribes ``_step_core``.
+    ``wc``/``tc`` are ``window_consts(...)`` and ``tail_consts(...)``.
+    With ``policy`` = (obs_rows, pack, hidden, actn) the policy forward
+    and sample run first, ``A`` is ignored and the outputs gain ACT, LOGP
+    and VAL. Returns a dict of output blocks."""
+    # ---- 0. the policy forward and sample ----------------------------------
+    pol = None
+    if policy is not None:
+        obs_in, pack, hidden, actn = policy
+        pol = policy_forward_plain(pack, hidden, obs_in, actn)
+        # the clipped action drives the step (yaw x pi is not read)
+        A = torch.clamp(pol[0], -1.0, 1.0)
     # ---- 1. window statics from the FULLSTATE action -----------------------
     elim0 = Rb[1]
     px0, py0, pz0 = S0[0], S0[1], S0[2]
@@ -141,9 +249,12 @@ def step_core_plain(wc, tc, S0, A, Rb, gg, oo, ep_steps0, rst, gates_reset,
 
     # ---- 2. the firmware window ---------------------------------------------
     S = window_loop_plain(S0, wv, wc, noise_rows=noise_rows)
-    return tail_plain(tc, wc["n_ticks"], S, Rb, gg, oo, ep_steps0, rst,
-                      gates_reset, obst_reset, telemetry=telemetry,
-                      elim_penalty=elim_penalty)
+    out = tail_plain(tc, wc["n_ticks"], S, Rb, gg, oo, ep_steps0, rst,
+                     gates_reset, obst_reset, telemetry=telemetry,
+                     elim_penalty=elim_penalty)
+    if pol is not None:
+        out["ACT"], out["LOGP"], out["VAL"] = pol
+    return out
 
 
 def tail_plain(tc, n_ticks, S, Rb, gg, oo, ep_steps0, rst, gates_reset,
@@ -485,31 +596,39 @@ def tail_plain(tc, n_ticks, S, Rb, gg, oo, ep_steps0, rst, gates_reset,
 
 
 _OUT_ORDER = ("S", "R", "GG", "OO", "EP", "OBS", "REW", "DONE")
+_POLICY_OUT = ("ACT", "LOGP", "VAL")
 
 
 def race_step_fused_plain(kf, km, arm, ground_z, S, A, R, GG, OO, EP, RST,
                           RSTG, RSTO, *, n_ticks, dt, spec_tail,
                           noise_rows=None, telemetry=False,
-                          elim_penalty=1.0):
+                          elim_penalty=1.0, policy_pack=None, obs_rows=None,
+                          actn=None, policy_hidden=(64, 64)):
     """Plain PyTorch version of ``race_step_fused`` (any device)."""
     wc = window_consts(kf, km, arm, ground_z, dt, n_ticks)
     tc = tail_consts(spec_tail, ground_z)
+    policy = (None if policy_pack is None
+              else (obs_rows, policy_pack, policy_hidden, actn))
     out = step_core_plain(wc, tc, S, A, R, GG, OO, EP, RST, RSTG, RSTO,
                           noise_rows=noise_rows, telemetry=telemetry,
-                          elim_penalty=elim_penalty)
+                          elim_penalty=elim_penalty, policy=policy)
     res = tuple(out[k] for k in _OUT_ORDER)
-    return res + ((out["INFO"],) if telemetry else ())
+    res += (out["INFO"],) if telemetry else ()
+    return res + (tuple(out[k] for k in _POLICY_OUT) if policy else ())
 
 
 # ---------------------------------------------------------------------------
 # the kernel's wrapper
 
 
+
+
 class StepConsts(ctypes.Structure):
-    """Mirrors ``struct StepConsts`` in csrc/race_step.cu field for field."""
+    """Mirrors ``struct StepConsts`` in csrc/race_step.cuh field for field."""
 
     _fields_ = [
         ("w", WindowConsts),
+        ("pl", PolicyLayout),
         ("N", ctypes.c_int),
         ("Tb", ctypes.c_int),
         ("G", ctypes.c_int),
@@ -550,18 +669,26 @@ class StepConsts(ctypes.Structure):
 
 
 class StepPtrs(ctypes.Structure):
-    """Mirrors ``struct StepPtrs`` in csrc/race_step.cu."""
+    """Mirrors ``struct StepPtrs`` in csrc/race_step.cuh."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "S", "A", "R", "GG", "OO", "EP", "RST", "RSTG", "RSTO", "noise",
         "S_out", "R_out", "GG_out", "OO_out", "EP_out", "OBS", "REW",
-        "DONE", "INFO",
+        "DONE", "INFO", "OBS_IN", "PP", "ACTN", "ACT", "LOGP", "VAL",
     )]
 
 
-def _step_consts_struct(wc, tc, telemetry, elim_penalty) -> StepConsts:
+def ptr(x):
+    """The device address of ``x``, or None for no tensor."""
+    return None if x is None else x.data_ptr()
+
+
+def step_consts_struct(wc, tc, telemetry, elim_penalty,
+                       layout=None) -> StepConsts:
     out = StepConsts()
     out.w = window_consts_struct(wc)
+    if layout is not None:
+        out.pl = layout
     for name in ("N", "Tb", "G", "O", "end_after_gate"):
         setattr(out, name, tc[name])
     for name in ("compete", "per_drone_reward", "done_on_collision",
@@ -584,50 +711,76 @@ def _step_consts_struct(wc, tc, telemetry, elim_penalty) -> StepConsts:
     return out
 
 
+def kernel_dims(tc, name):
+    """(N, Tb, G, O, T, C) of a step, refused past the kernel's capacity."""
+    N, Tb, G, O = tc["N"], tc["Tb"], tc["G"], tc["O"]
+    if N > MAX_DRONES or G > MAX_GATES or O > MAX_OBSTACLES:
+        raise ValueError(
+            f"{name} kernel takes at most {MAX_DRONES} drones, "
+            f"{MAX_GATES} gates and {MAX_OBSTACLES} obstacles "
+            f"(got {N}, {G}, {O})"
+        )
+    return N, Tb, G, O, N * Tb, obs_channels(N, G, O, tc["compete"])
+
+
+def check_policy_pack(pack, C, hidden, device):
+    """The layout of a pack for obs size ``C``; raises on a wrong pack."""
+    layout, n = policy_layout(C, hidden)
+    _check_block("policy_pack", pack, (n,), device)
+    return layout
+
+
+def launch_error(name, err):
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: {_build.error_string(err)}")
+
+
 def race_step_fused(kf, km, arm, ground_z, S, A, R, GG, OO, EP, RST, RSTG,
                     RSTO, *, n_ticks, dt, spec_tail, noise_rows=None,
-                    telemetry=False, elim_penalty=1.0, policy_pack=None):
+                    telemetry=False, elim_penalty=1.0, policy_pack=None,
+                    obs_rows=None, actn=None, policy_hidden=(64, 64)):
     """One fused race RL step over the packed blocks.
 
-    Returns (S', R', GG', OO', EP', OBS, REW, DONE) and, with
-    ``telemetry``, INFO. CPU tensors take the plain version. CUDA tensors
-    launch the kernel (csrc/race_step.cu, one thread per env looping over
-    its drones) on the current stream, counting the launch in
-    ``race_step_fused.launches``. Any other device raises."""
-    if policy_pack is not None:
-        raise NotImplementedError(
-            "the in-kernel policy forward is not ported yet: run the "
-            "policy outside and pass its action rows as A"
-        )
+    Returns (S', R', GG', OO', EP', OBS, REW, DONE), then INFO with
+    ``telemetry``, then ACT, LOGP, VAL with ``policy_pack`` (a
+    ``policy_layout`` pack for ``policy_hidden``, with the previous obs
+    ``obs_rows`` (C, T, 128) and draws ``actn`` (4, T, 128); ``A`` is then
+    not read). CPU tensors take the plain version. CUDA tensors launch the
+    kernel (csrc/race_step.cu, one thread per env looping over its drones)
+    on the current stream, counting the launch in
+    ``race_step_fused.launches`` and, with the policy option, in
+    ``race_step_fused.policy_launches``. Any other device raises."""
     dev = S.device
     if dev.type == "cpu":
         return race_step_fused_plain(
             kf, km, arm, ground_z, S, A, R, GG, OO, EP, RST, RSTG, RSTO,
             n_ticks=n_ticks, dt=dt, spec_tail=spec_tail,
             noise_rows=noise_rows, telemetry=telemetry,
-            elim_penalty=elim_penalty,
+            elim_penalty=elim_penalty, policy_pack=policy_pack,
+            obs_rows=obs_rows, actn=actn, policy_hidden=policy_hidden,
         )
     if dev.type != "cuda":
         raise ValueError(f"race_step_fused: unsupported device {dev}")
     wc = window_consts(kf, km, arm, ground_z, dt, n_ticks)
     tc = tail_consts(spec_tail, ground_z)
-    N, Tb, G, O = tc["N"], tc["Tb"], tc["G"], tc["O"]
-    if N > MAX_DRONES or G > MAX_GATES or O > MAX_OBSTACLES:
-        raise ValueError(
-            f"race_step_fused kernel takes at most {MAX_DRONES} drones, "
-            f"{MAX_GATES} gates and {MAX_OBSTACLES} obstacles "
-            f"(got {N}, {G}, {O})"
-        )
-    T = N * Tb
-    C = obs_channels(N, G, O, tc["compete"])
+    N, Tb, G, O, T, C = kernel_dims(tc, "race_step_fused")
+    policy = policy_pack is not None
     for name, x, shape in (
-            ("S", S, (S_CHANNELS, T, LANE)), ("A", A, (4, T, LANE)),
+            ("S", S, (S_CHANNELS, T, LANE)),
             ("R", R, (R_CHANNELS, T, LANE)), ("GG", GG, (3 * G, Tb, LANE)),
             ("OO", OO, (2 * O, Tb, LANE)), ("EP", EP, (Tb, LANE)),
             ("RST", RST, (RST_CHANNELS, T, LANE)),
             ("RSTG", RSTG, (3 * G, Tb, LANE)),
             ("RSTO", RSTO, (2 * O, Tb, LANE))):
         _check_block(name, x, shape, dev)
+    layout = None
+    if policy:
+        layout = check_policy_pack(policy_pack, C, policy_hidden, dev)
+        _check_block("obs_rows", obs_rows, (C, T, LANE), dev)
+        _check_block("actn", actn, (ACT_DIM, T, LANE), dev)
+    else:
+        _check_block("A", A, (ACT_DIM, T, LANE), dev)
     if noise_rows is not None:
         _check_block("noise_rows", noise_rows,
                      (n_ticks, NOISE_CHANNELS, T, LANE), dev)
@@ -640,27 +793,31 @@ def race_step_fused(kf, km, arm, ground_z, S, A, R, GG, OO, EP, RST, RSTG,
             empty(Tb, LANE), empty(C, T, LANE), empty(T, LANE),
             empty(Tb, LANE)]
     info = empty(INFO_CHANNELS, T, LANE) if telemetry else None
+    pol = ([empty(ACT_DIM, T, LANE), empty(T, LANE), empty(T, LANE)]
+           if policy else [None, None, None])
     ptrs = StepPtrs(
-        S.data_ptr(), A.data_ptr(), R.data_ptr(), GG.data_ptr(),
-        OO.data_ptr(), EP.data_ptr(), RST.data_ptr(), RSTG.data_ptr(),
-        RSTO.data_ptr(),
-        noise_rows.data_ptr() if noise_rows is not None else None,
-        *[o.data_ptr() for o in outs],
-        info.data_ptr() if info is not None else None,
+        S.data_ptr(), None if policy else A.data_ptr(), R.data_ptr(),
+        GG.data_ptr(), OO.data_ptr(), EP.data_ptr(), RST.data_ptr(),
+        RSTG.data_ptr(), RSTO.data_ptr(), ptr(noise_rows),
+        *[o.data_ptr() for o in outs], ptr(info),
+        ptr(obs_rows if policy else None), ptr(policy_pack),
+        ptr(actn if policy else None), *[ptr(x) for x in pol],
     )
-    consts = _step_consts_struct(wc, tc, telemetry, elim_penalty)
-    lib = _build.library()
+    consts = step_consts_struct(wc, tc, telemetry, elim_penalty, layout)
+    lib = _build.library("race_step")
     with torch.cuda.device(dev):
         err = lib.adrp_race_step(
             ctypes.addressof(ptrs), ctypes.addressof(consts),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"race_step kernel launch failed: {_build.error_string(err)}"
-        )
+    launch_error("race_step", err)
     race_step_fused.launches += 1
-    return tuple(outs) + ((info,) if telemetry else ())
+    res = tuple(outs) + ((info,) if telemetry else ())
+    if policy:
+        race_step_fused.policy_launches += 1
+        res += tuple(pol)
+    return res
 
 
 race_step_fused.launches = 0
+race_step_fused.policy_launches = 0

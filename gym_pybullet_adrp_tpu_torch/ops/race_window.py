@@ -655,7 +655,7 @@ def race_window(kf, km, arm, ground_z, S, W, n_ticks: int = 20,
     consts = window_consts_struct(
         window_consts(kf, km, arm, ground_z, dt, n_ticks)
     )
-    lib = _build.library()
+    lib = _build.library("race_window")
     with torch.cuda.device(dev):
         err = lib.adrp_race_window(
             S.data_ptr(), W.data_ptr(),

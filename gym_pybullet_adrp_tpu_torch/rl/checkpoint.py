@@ -1,6 +1,8 @@
-"""Read the flax-msgpack policy artifacts without flax or msgpack.
+"""Read and write the flax-msgpack policy artifacts without flax or
+msgpack.
 
-Counterpart of gym_pybullet_adrp_tpu.rl.checkpoint.load_policy (:58).
+Counterpart of gym_pybullet_adrp_tpu.rl.checkpoint (``save_policy`` :47,
+``load_policy`` :58).
 The shipped artifacts (``agents/*.msgpack``, ``results/*.msgpack``) are
 ``flax.serialization.to_bytes`` of a params tree: msgpack maps with str
 keys whose leaves are the ext type 1 (ndarray) payload
@@ -9,7 +11,10 @@ port runs on has neither flax nor msgpack, so ``msgpack_restore`` reads
 that subset in pure Python: maps, arrays, str/bin, nil/bool/int/float,
 and ext types 1 (ndarray) and 3 (numpy scalar). ``tests/test_torch_policy``
 holds it equal to ``flax.serialization.msgpack_restore`` on every
-artifact.
+artifact. ``msgpack_pack`` writes the same subset (maps with their keys
+sorted, as in the shipped artifacts, and ndarrays), so a shipped
+artifact read and written back gives its own bytes, and the JAX
+package's ``load_policy`` reads what ``save_policy`` writes.
 """
 
 import struct
@@ -118,14 +123,71 @@ def msgpack_restore(data: bytes):
     return out
 
 
+def _pack_len(n, small, codes):
+    """The header of an object of length ``n``: a fix-type byte below
+    ``small``, else the shortest of the 1-, 2- or 4-byte length codes."""
+    if small is not None and n < small[1]:
+        return bytes([small[0] | n])
+    for code, width in zip(codes, (1, 2, 4)):
+        if code is not None and n < 1 << (8 * width):
+            return bytes([code]) + n.to_bytes(width, "big")
+    raise ValueError(f"msgpack object too long ({n})")
+
+
+def msgpack_pack(obj) -> bytes:
+    """Encode nested dicts (str keys, sorted), tuples/lists of ints and
+    str, bytes and numpy arrays (ext type 1) as flax's msgpack does."""
+    if isinstance(obj, dict):
+        head = _pack_len(len(obj), (0x80, 16), (None, 0xDE, 0xDF))
+        return head + b"".join(msgpack_pack(k) + msgpack_pack(obj[k])
+                               for k in sorted(obj))
+    if isinstance(obj, (tuple, list)):
+        head = _pack_len(len(obj), (0x90, 16), (None, 0xDC, 0xDD))
+        return head + b"".join(msgpack_pack(x) for x in obj)
+    if isinstance(obj, str):
+        b = obj.encode("utf-8")
+        return _pack_len(len(b), (0xA0, 32), (0xD9, 0xDA, 0xDB)) + b
+    if isinstance(obj, bytes):
+        return _pack_len(len(obj), None, (0xC4, 0xC5, 0xC6)) + obj
+    if isinstance(obj, int) and not isinstance(obj, bool):
+        if 0 <= obj < 0x80:
+            return bytes([obj])
+        for code, width in ((0xCC, 1), (0xCD, 2), (0xCE, 4), (0xCF, 8)):
+            if 0 <= obj < 1 << (8 * width):
+                return bytes([code]) + obj.to_bytes(width, "big")
+        raise ValueError(f"msgpack_pack: unsupported int {obj}")
+    if isinstance(obj, np.ndarray):
+        arr = np.ascontiguousarray(obj)
+        payload = msgpack_pack((tuple(arr.shape), arr.dtype.name,
+                                arr.tobytes("C")))
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        head = (bytes([fixext[n]]) if n in fixext
+                else _pack_len(n, None, (0xC7, 0xC8, 0xC9)))
+        return head + bytes([_EXT_NDARRAY]) + payload
+    raise TypeError(f"msgpack_pack: unsupported type {type(obj)}")
+
+
+def save_policy(path, net):
+    """Write ``net`` (the port's ``ActorCritic``) as a flax-msgpack policy
+    artifact at ``path`` (creating its directory); returns the path."""
+    from ..convert import flax_from_actor_critic
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(msgpack_pack(flax_from_actor_critic(net)))
+    return path
+
+
 def load_params(path):
     """The params tree of a flax-msgpack artifact, as numpy arrays."""
     return msgpack_restore(Path(path).read_bytes())
 
 
-def load_policy(path, device="cpu"):
-    """An ``ActorCritic`` with the weights of a flax ActorCritic artifact
-    (tower widths taken from the artifact)."""
+def load_policy(path, device="cuda"):
+    """An ``ActorCritic`` on ``device`` (the card unless the caller asks
+    for the CPU) with the weights of a flax ActorCritic artifact (tower
+    widths taken from the artifact)."""
     from ..convert import actor_critic_from_flax
 
     return actor_critic_from_flax(load_params(path)).to(device)

@@ -80,7 +80,8 @@ def test_actor_critic_matches_flax(artifact):
 
 
 def test_load_policy_and_sampling():
-    net = pck.load_policy(REPO / "results/level1_robust.msgpack")
+    net = pck.load_policy(REPO / "results/level1_robust.msgpack",
+                          device="cpu")
     assert isinstance(net, ActorCritic) and net.hidden == (64, 64)
     obs = torch.zeros((8, net.obs_dim))
     mean, log_std, _ = net(obs)

@@ -64,8 +64,10 @@ def flown_states():
     cfg = load_config("level1")
     spec = prace.RaceSpec.from_config(cfg, 2, RaceMode.COMPARE)
     env = make_row_env(spec, prace.track_from_config(cfg, 2), 128,
+                       device="cpu",
                        generator=torch.Generator().manual_seed(3))
-    net = pck.load_policy(REPO / "results/level1_robust.msgpack")
+    net = pck.load_policy(REPO / "results/level1_robust.msgpack",
+                          device="cpu")
     st = env.reset()
     obs = env.initial_obs(st)
     out = {}

@@ -62,7 +62,7 @@ def test_slice_matches_jax_per_step():
                          jax.random.PRNGKey(0))
 
     env = eval_race.make_eval_env("getting_started", 128, "cpu")
-    net = pck.load_policy(POLICY)
+    net = pck.load_policy(POLICY, device="cpu")
     st = env.reset()
     obs = env.initial_obs(st)
     # deterministic resets: both packages start from the same blocks
@@ -100,7 +100,7 @@ def test_slice_reproduces_published_lap():
     """The port flies the full-track policy through all 4 gates in every
     env with the 2.84 s lap the JAX package reports from the TPU."""
     env = eval_race.make_eval_env("getting_started", 128, "cpu")
-    net = pck.load_policy(POLICY)
+    net = pck.load_policy(POLICY, device="cpu")
     cgs, fins, els, dones, _, _ = eval_race.rollout(net, env, 75)
     m = eval_race.race_metrics(cgs.numpy(), fins.numpy(), els.numpy(),
                                dones.numpy(), env.G, env.n_ticks, 500)
@@ -110,8 +110,9 @@ def test_slice_reproduces_published_lap():
 
 
 def test_package_imports_no_jax():
-    """Importing every module of the port leaves jax, flax, yaml and
-    gymnasium unimported (the card's machine has none of them)."""
+    """Importing every module of the port, the trainer and the learner
+    included, leaves jax, flax, yaml and gymnasium unimported (the card's
+    machine has none of them)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import gym_pybullet_adrp_tpu_torch as p\n"
@@ -119,8 +120,11 @@ def test_package_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in ('jax', 'flax', 'yaml', 'gymnasium', "
         "'msgpack', 'gym_pybullet_adrp_tpu') if m in sys.modules]\n"
-        "print('LOADED', bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "new = ['gym_pybullet_adrp_tpu_torch.' + m for m in ("
+        "'train_race', 'rl.ppo', 'ops.race_rollout')]\n"
+        "missing = [m for m in new if m not in sys.modules]\n"
+        "print('LOADED', bad, 'MISSING', missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
@@ -129,16 +133,25 @@ def test_package_imports_no_jax():
 
 def test_kernel_wrappers_refuse_other_devices():
     """A wrapper takes the plain version only for CPU tensors."""
-    from gym_pybullet_adrp_tpu_torch.ops import race_step, race_window
+    from gym_pybullet_adrp_tpu_torch.ops import (
+        race_rollout, race_step, race_window,
+    )
 
     S = torch.zeros((58, 1, 128), device="meta")
     W = torch.zeros((57, 1, 128), device="meta")
     with pytest.raises(ValueError):
         race_window.race_window(3.16e-10, 7.94e-12, 0.0397, 0.0125, S, W)
-    with pytest.raises(NotImplementedError):
-        race_step.race_step_fused(
-            0, 0, 0, 0, S, None, None, None, None, None, None, None, None,
-            n_ticks=20, dt=0.002, spec_tail=None, policy_pack=object())
+    for policy_pack in (None, torch.zeros(8, device="meta")):
+        with pytest.raises(ValueError):
+            race_step.race_step_fused(
+                0, 0, 0, 0, S, None, None, None, None, None, None, None,
+                None, n_ticks=20, dt=0.002, spec_tail=None,
+                policy_pack=policy_pack)
+        with pytest.raises(ValueError):
+            race_rollout.race_rollout(
+                0, 0, 0, 0, S, None, None, None, None, None, None, None,
+                None, n_ticks=20, dt=0.002, spec_tail=None,
+                policy_pack=policy_pack)
 
 
 @pytest.mark.slow
