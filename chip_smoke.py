@@ -1,6 +1,7 @@
-"""Drive the PyTorch/CUDA port of the race env on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the race env and
+trainer, then the hover env family.
 
-Builds the race kernels from gym_pybullet_adrp_tpu_torch/csrc, holds each
+Builds the port's kernels from gym_pybullet_adrp_tpu_torch/csrc, holds each
 against its plain PyTorch version on the card, evaluates the shipped
 level1 policy through the port's serving path (the fused race step
 kernel, and the window kernel + plain tail), times the fused step; then
@@ -9,8 +10,15 @@ K-step rollout kernel against K launches of the step kernel, and the
 card's PPO update against the CPU's, trains a race policy at full width
 through the policy-in-kernel rollout (and, briefly, through the other
 two rollout paths), saves, reloads and evaluates it, and times the
-rollout kernel. Every phase prints its lines; any failed phase exits
-non-zero without the final result line.
+rollout kernel. Then the hover kernels (12-15): the control-step kernel
+against its plain version and through fast_hover.make_step at bench.py's
+``--impl pallas`` workload; the rollout kernel against its plain version
+(injected and random draws, both integrators), its random draws' law, and
+bench.py's headline workload; the A/B variants against the rollout
+kernel's instantiations; the op-cost chains and the card's per-op
+calibration. Phase 16 trains hover PPO through the control-step kernel
+and through the RL hover env. Every phase prints its lines; any failed
+phase exits non-zero without the final result line.
 
 Usage (needs one CUDA device and nvcc; no JAX):
   python3 chip_smoke.py [--out DIR]
@@ -231,6 +239,32 @@ def kernel_ms(fn, kernel, n=20):
     return ms / count if count else None
 
 
+def device_ms(fn, n=20, sleep_cycles=20_000_000):
+    """Device time per call of ``fn``: ``n`` calls queued behind a spin
+    kernel (``torch.cuda._sleep``), so that the host has queued every
+    launch before the card reaches the first and the events time the
+    launches back to back, without the host's gaps. The spin is doubled
+    until it outlasts the host's queueing (at most 4 times)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(sleep_cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / n
+        sleep_cycles *= 2
+    raise PhaseError(f"device_ms: the host queued {n} calls in {host_ms} ms, "
+                     "longer than the spin")
+
+
 def profile_steps(env, rows, draws, kw, step_fn, n=64):
     """Host wall time, the kernel's traced launches and their device time,
     and the device's idle share over ``n`` steps ("not measured" when the
@@ -265,11 +299,14 @@ class PlainCalls:
              ("race_step", "policy_forward_plain"),
              ("race_window", "race_window_plain"),
              ("race_rollout", "race_rollout_plain"),
-             ("race_rollout", "step_core_plain"))
+             ("race_rollout", "step_core_plain"),
+             ("hover_step", "ctrl_step_packed_plain"),
+             ("hover_step", "rollout_plain"),
+             ("hover_variants", "rollout_plain"),
+             ("op_calibrate", "op_chain_plain"))
 
-    def __init__(self, race_step, race_window, race_rollout):
-        self.mods = {"race_step": race_step, "race_window": race_window,
-                     "race_rollout": race_rollout}
+    def __init__(self, **mods):
+        self.mods = mods
         self.calls = {}
 
     def __enter__(self):
@@ -277,10 +314,10 @@ class PlainCalls:
         for mod, name in self.NAMES:
             fn = getattr(self.mods[mod], name)
             self.orig[(mod, name)] = fn
-            self.calls[name] = 0
+            self.calls[f"{mod}.{name}"] = 0
 
-            def wrapped(*a, _fn=fn, _name=name, **k):
-                self.calls[_name] += 1
+            def wrapped(*a, _fn=fn, _key=f"{mod}.{name}", **k):
+                self.calls[_key] += 1
                 return _fn(*a, **k)
 
             setattr(self.mods[mod], name, wrapped)
@@ -294,26 +331,26 @@ class PlainCalls:
 class LaunchCount(dict):
     """Sets every kernel's launch count to 0 on entry; on exit holds the
     launches made inside, by kernel (the step kernel with and without its
-    policy option apart), and adds them to ``totals``."""
+    policy option apart), and adds them to ``totals``. ``kernels`` maps
+    each kernel's name to its wrapper."""
 
-    def __init__(self, race_step, race_window, race_rollout, totals):
+    def __init__(self, kernels, totals):
         super().__init__()
-        self.fns = (race_step.race_step_fused, race_window.race_window,
-                    race_rollout.race_rollout)
+        self.fns = kernels
         self.totals = totals
 
     def __enter__(self):
-        for fn in self.fns:
+        for fn in self.fns.values():
             fn.launches = 0
-        self.fns[0].policy_launches = 0
+        self.fns["race_step_fused"].policy_launches = 0
         return self
 
     def __exit__(self, *exc):
-        step, window, rollout = self.fns
-        self.update({"race_window": window.launches,
-                     "race_step_fused": step.launches - step.policy_launches,
-                     "race_step_fused[policy]": step.policy_launches,
-                     "race_rollout": rollout.launches})
+        for name, fn in self.fns.items():
+            self[name] = fn.launches
+        step = self.fns["race_step_fused"]
+        self["race_step_fused"] -= step.policy_launches
+        self["race_step_fused[policy]"] = step.policy_launches
         for k, v in self.items():
             self.totals[k] += v
 
@@ -565,15 +602,15 @@ def phase9(dev, n_envs):
             "loss_rel_err": loss_err}
 
 
-def phase10(dev, gpu, eval_race, race_step, race_window, race_rollout, plain,
-            totals, n_envs=4096, iters=40):
+def phase10(dev, gpu, eval_race, kernels, plain, totals, n_envs=4096,
+            iters=40):
     """Train getting_started at 4096 envs through race_rollout with the
     policy inside (40 iterations), then briefly through race_step with
     and without the policy; save, reload and evaluate the policy."""
     from gym_pybullet_adrp_tpu_torch import train_race
     from gym_pybullet_adrp_tpu_torch.rl import checkpoint as ckpt
 
-    mods = (race_step, race_window, race_rollout, totals)
+    mods = (kernels, totals)
     kw = dict(config="getting_started", n_envs=n_envs, n_steps=64,
               hidden=(64, 64), shuffle_block=512, device=dev, log_every=10)
     t0 = time.perf_counter()
@@ -707,6 +744,564 @@ def phase11(dev, gen, gpu, eval_race, race_step, race_rollout, n_envs=4096):
     return out
 
 
+# the hover kernels against their plain versions: both round every + - *
+# / and sqrt alike (-fmad=false); K1 and the exact integrator also call
+# sinf/cosf, which may differ from PyTorch's CUDA sin/cos in the last bit.
+# Stated before the first run; the measured errors are printed.
+HOVER_TOL = {"pos/quat/vel": 1e-6, "omega": 1e-5, "acc": 1e-4}
+# op chains: exact for the correctly rounded ops, relative for libm ones
+EXACT_OPS = ("fma", "mul", "add", "max", "div", "sqrt")
+CHAIN_RTOL = 1e-5
+HOVER_GROUPS = {"pos/quat/vel": list(range(10)), "omega": [10, 11, 12]}
+
+
+def hover_errs(name, got, ref, acc=None, ref_acc=None):
+    """Max abs error per channel group of a hover state (and of acc);
+    raises past ``HOVER_TOL``."""
+    errs = {}
+    for grp, chans in HOVER_GROUPS.items():
+        check(torch.isfinite(got[chans]).all().item(), f"{name}: {grp}")
+        errs[grp] = float((got[chans] - ref[chans]).abs().max())
+    if acc is not None:
+        errs["acc"] = float((acc - ref_acc).abs().max())
+    for k, v in errs.items():
+        check(v <= HOVER_TOL[k], f"{name}: {k} err {v} > {HOVER_TOL[k]}")
+    errs["max"] = max(errs.values())
+    return errs
+
+
+def hover_inputs(dev, gen, n_envs, hs, quat_ops, params):
+    """tests/test_pallas.py:31's distribution (pos +-1 + z 1.5, rpy +-0.3,
+    vel +-1, omega +-2, rpm 0.9-1.1 x hover), the first 128 envs in ground
+    contact (z 0.02, falling, motors off); packed."""
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    pos = u(-1, 1, n_envs, 3) + torch.tensor([0.0, 0.0, 1.5], device=dev)
+    quat = quat_ops.from_euler_xyz(u(-0.3, 0.3, n_envs, 3))
+    vel, om = u(-1, 1, n_envs, 3), u(-2, 2, n_envs, 3)
+    rpm = u(0.9, 1.1, n_envs, 4) * params.hover_rpm
+    pos[:128] = torch.tensor([0.0, 0.0, 0.02], device=dev)
+    quat[:128] = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    vel[:128] = torch.tensor([0.0, 0.0, -1.0], device=dev)
+    om[:128] = 0.0
+    rpm[:128] = 0.0
+    return (hs.pack_state(pos, quat, vel, om),
+            rpm.T.reshape(4, n_envs // 128, 128).contiguous())
+
+
+def phase12(dev, gen, gpu, kernels, plain, totals, n_envs=4096, steps=256):
+    """K1 (ctrl_step_packed) against its plain version, then the workload
+    of ``bench.py --impl pallas`` through fast_hover.make_step."""
+    from gym_pybullet_adrp_tpu_torch.envs import fast_hover
+    from gym_pybullet_adrp_tpu_torch.models.drone import drone_params
+    from gym_pybullet_adrp_tpu_torch.ops import hover_step as hs
+    from gym_pybullet_adrp_tpu_torch.ops import quat as quat_ops
+
+    P = drone_params(device=dev)
+    c = hs.hover_consts(P, 8, 1 / 240)
+    packed, rpm = hover_inputs(dev, gen, n_envs, hs, quat_ops, P)
+    got = hs.ctrl_step_packed(P, packed, rpm, 8, 1 / 240)
+    ref = hs.ctrl_step_packed_plain(P, packed, rpm, 8, 1 / 240)
+    torch.cuda.synchronize()
+    errs = hover_errs("ctrl_step_packed", got, ref)
+    per_ch = [float(x) for x in (got - ref).abs().amax(dim=(1, 2))]
+    check(bool((got[2, 0] == 0.0125).all()), "ground contact height")
+    res = {"max_abs_err": errs["max"], "per_channel_err": per_ch}
+
+    # the constants folded once, as make_step folds them: folding reads
+    # the params back from the card
+    def kern():
+        return hs.ctrl_step_packed(P, packed, rpm, 8, 1 / 240, consts=c)
+
+    def plain_fn():
+        return hs.ctrl_step_packed_plain(P, packed, rpm, 8, 1 / 240,
+                                         consts=c)
+
+    res["loop_ms"] = cuda_ms(kern, 50)
+    res["ms"] = device_ms(kern, 50)
+    res["plain_ms"] = cuda_ms(plain_fn, 5)
+    res.update(bound((packed, rpm), (got,), count_ops(plain_fn)))
+    print(f"[12] ctrl_step_packed vs plain, {n_envs} envs (128 in ground "
+          f"contact): max abs err per channel {per_ch} (tol {HOVER_TOL}); "
+          f"{res['ms']:.4g} ms on the device, {res['loop_ms']:.4g} ms per "
+          f"launch in a host loop, plain {res['plain_ms']:.4g} ms, bound "
+          f"{res['bound_ms']:.4g} ms ({res['bound_by']}: {res['ops']:.4g} "
+          f"ops, {res['bytes']:.4g} B)", flush=True)
+
+    # bench.py --impl pallas: 4096 envs, 256 steps, actions in +-0.05 drawn
+    # on the card every step, the reward summed
+    step = fast_hover.make_step(P, n_envs, device=dev)
+    T = n_envs // 128
+
+    def run(n):
+        st = fast_hover.reset_packed([0.0, 0.0, 0.1125], n_envs, device=dev)
+        total = torch.zeros((), device=dev)
+        for _ in range(n):
+            a = (torch.rand((4, T, 128), generator=gen, device=dev) - 0.5) * 0.1
+            st, (obs, rew, done) = step(st, a)
+            total = total + rew.sum()
+        return st, total
+
+    run(8)
+    torch.cuda.synchronize()
+    with plain, LaunchCount(kernels, totals) as la:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        st, total = run(steps)
+        stop.record()
+        torch.cuda.synchronize()
+    secs = start.elapsed_time(stop) / 1e3
+    check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+    check(la["ctrl_step_packed"] == steps, f"step path launches {dict(la)}")
+    check(torch.isfinite(st.packed).all().item()
+          and math.isfinite(float(total)), "step path: non-finite")
+    res["step_env_steps_per_sec"] = n_envs * steps / secs
+    res["step_ms"] = secs / steps * 1e3
+    print(f"[12] fast_hover.make_step, {n_envs} envs x {steps} steps "
+          f"(bench.py --impl pallas): {la['ctrl_step_packed']} "
+          f"ctrl_step_packed launches, no plain call; "
+          f"{res['step_env_steps_per_sec']:.6g} env-steps/s "
+          f"({res['step_ms']:.4g} ms per step), reward sum {float(total):.6g}"
+          f" on {gpu}", flush=True)
+    return res
+
+
+def mean_se(x):
+    x = x.double().reshape(-1)
+    return float(x.mean()), float(x.std() / math.sqrt(x.numel()))
+
+
+def phase13(dev, gen, gpu, kernels, plain, totals, n_envs=4096,
+            n_steps=64, launches=60):
+    """K2 (hover_rollout) against its plain version in injected and random
+    mode, both integrators; the random mode's law against injected
+    torch.rand draws; the bench headline workload (60 launches of 64 steps
+    at 4096 envs) and the 65536-env point."""
+    from gym_pybullet_adrp_tpu_torch.envs import fast_hover
+    from gym_pybullet_adrp_tpu_torch.models.drone import drone_params
+    from gym_pybullet_adrp_tpu_torch.ops import hover_step as hs
+
+    P = drone_params(device=dev)
+    T = n_envs // 128
+    st0 = fast_hover.reset_packed([0.0, 0.0, 0.1125], n_envs,
+                                  device=dev).packed
+    acts = ((torch.rand((n_steps, 4, T, 128), generator=gen, device=dev)
+             - 0.5) * 0.1).contiguous()
+    res = {"max_abs_err": 0.0}
+    for small in (True, False):
+        for mode, kw in (("injected", {"actions": acts}), ("random", {})):
+            got = hs.hover_rollout(P, st0, 11, n_steps, smallangle=small,
+                                   count_resets=True, **kw)
+            ref = hs.hover_rollout_plain(P, st0, 11, n_steps,
+                                         smallangle=small,
+                                         count_resets=True, **kw)
+            torch.cuda.synchronize()
+            name = (f"hover_rollout[{'smallangle' if small else 'exact'}, "
+                    f"{mode}]")
+            errs = hover_errs(name, got[0], ref[0], got[1], ref[1])
+            check(torch.equal(got[2], ref[2]), f"{name}: resets differ")
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+            if mode == "injected":
+                res["max_abs_err"] = max(res["max_abs_err"], errs["max"])
+            print(f"[13] {name} vs plain, {n_envs} envs x {n_steps} steps: "
+                  f"state err {errs['pos/quat/vel']:.3g} / omega "
+                  f"{errs['omega']:.3g}, acc err {errs['acc']:.3g}, resets "
+                  f"equal ({float(got[2].sum()):.0f}); bit for bit: "
+                  f"{bitwise}", flush=True)
+    a1 = hs.hover_rollout(P, st0, 5, n_steps)
+    a2 = hs.hover_rollout(P, st0, 5, n_steps)
+    a3 = hs.hover_rollout(P, st0, 6, n_steps)
+    check(all(torch.equal(x, y) for x, y in zip(a1, a2)),
+          "random mode: one seed gave two results")
+    check(not torch.equal(a1[0], a3[0]), "random mode: two seeds agree")
+    # the random mode's law against injected torch.rand draws: means of
+    # acc, resets and each state channel within 4 standard errors
+    rnd = hs.hover_rollout(P, st0, 12345, n_steps, count_resets=True)
+    inj = hs.hover_rollout(P, st0, 0, n_steps, actions=acts,
+                           count_resets=True)
+    law = {}
+    for name, x, y in ([("acc", rnd[1], inj[1]),
+                        ("resets", rnd[2], inj[2])]
+                       + [(f"ch{c}", rnd[0][c], inj[0][c])
+                          for c in range(13)]):
+        (m1, s1), (m2, s2) = mean_se(x), mean_se(y)
+        se = math.hypot(s1, s2)
+        law[name] = (m1, m2, se)
+        check(abs(m1 - m2) <= 4 * se + 1e-12,
+              f"random vs injected law: {name} {m1} vs {m2} (se {se})")
+    print("[13] random mode (seed 12345) vs injected torch.rand draws, "
+          f"{n_envs} envs x {n_steps} steps: " + ", ".join(
+              f"{k} {v[0]:.5g} vs {v[1]:.5g} (se {v[2]:.2g})"
+              for k, v in law.items() if not k.startswith("ch"))
+          + "; all 13 state channels within 4 se; share of envs reset "
+          f"{float((rnd[2] > 0).float().mean()):.4g} vs "
+          f"{float((inj[2] > 0).float().mean()):.4g}", flush=True)
+    res["law"] = law
+    # the constants folded once for the timed loops: folding reads the
+    # params back from the card
+    c = hs.hover_consts(P)
+
+    def headline(fn, n_envs_, n_launch):
+        st = fast_hover.reset_packed([0.0, 0.0, 0.1125], n_envs_,
+                                     device=dev).packed
+        total = torch.zeros((), device=dev)
+        for i in range(n_launch):
+            st, acc = fn(P, st, 7 + i, n_steps, consts=c)
+            total = total + acc.sum()
+        return st, total
+
+    def timed(fn, label):
+        headline(fn, n_envs, 2)
+        torch.cuda.synchronize()
+        with plain, LaunchCount(kernels, totals) as la:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            st, total = headline(fn, n_envs, launches)
+            stop.record()
+            torch.cuda.synchronize()
+        check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+        check(torch.isfinite(st).all().item() and math.isfinite(float(total)),
+              f"{label}: non-finite")
+        secs = start.elapsed_time(stop) / 1e3
+        rate = n_envs * n_steps * launches / secs
+        return la, rate, secs / launches * 1e3, float(total)
+
+    la, rate, loop_ms, total = timed(hs.hover_rollout, "hover_rollout")
+    check(la["hover_rollout"] == launches, f"headline launches {dict(la)}")
+    dev_ms = device_ms(lambda: hs.hover_rollout(P, st0, 3, n_steps,
+                                                consts=c))
+    res.update(env_steps_per_sec=rate, loop_ms=loop_ms, ms=dev_ms,
+               headline_reward=total)
+    print(f"[13] bench headline (bench.py --impl pallas-rollout): "
+          f"{n_envs} envs, {launches} hover_rollout launches x {n_steps} "
+          f"steps, seeds 7+i: {rate:.6g} env-steps/s, {loop_ms:.4g} ms per "
+          f"launch in the loop, {dev_ms:.4g} ms per launch on the device "
+          f"(launches back to back); reward sum {total:.6g}; on {gpu}",
+          flush=True)
+    # the batch that fills the card: 65536 envs
+    big = fast_hover.reset_packed([0.0, 0.0, 0.1125], 65536,
+                                  device=dev).packed
+    res["ms_65536"] = device_ms(
+        lambda: hs.hover_rollout(P, big, 3, n_steps, consts=c), n=10)
+    res["env_steps_per_sec_65536"] = 65536 * n_steps / res["ms_65536"] * 1e3
+    print(f"[13] hover_rollout per launch of {n_steps} steps on the device "
+          f"({hs.THREADS}-thread blocks): {n_envs} envs {dev_ms:.4g} ms, 65536 "
+          f"envs {res['ms_65536']:.4g} ms "
+          f"({res['env_steps_per_sec_65536']:.6g} env-steps/s)", flush=True)
+    del big
+
+    def plain_fn():
+        return hs.hover_rollout_plain(P, st0, 0, n_steps, actions=acts,
+                                      consts=c)
+
+    res["plain_ms"] = cuda_ms(plain_fn, 1, warmup=0)
+    # the function's float work (the physics; the in-kernel draw's integer
+    # ops are not counted): ops of 2 plain steps x n_steps / 2
+    step_ops = count_ops(lambda: hs.hover_rollout_plain(
+        P, st0, 0, 2, actions=acts[:2], consts=c))
+    res.update(bound((st0,), (st0, st0[0]), step_ops * n_steps // 2))
+    print(f"[13] hover_rollout plain (injected, {n_steps} steps) "
+          f"{res['plain_ms']:.4g} ms; bound {res['bound_ms']:.4g} ms "
+          f"({res['bound_by']}: {res['ops']:.4g} ops, {res['bytes']:.4g} B)",
+          flush=True)
+    return res
+
+
+def phase14(dev, gen, gpu, kernels, plain, totals, n_envs=4096,
+            n_steps=64, launches=60):
+    """K7 (hover_rollout_v2) and K8 (hover_rollout_v3) against their plain
+    versions and against the K2 instantiations they equal, bit for bit,
+    and their own times."""
+    from gym_pybullet_adrp_tpu_torch.envs import fast_hover
+    from gym_pybullet_adrp_tpu_torch.models.drone import drone_params
+    from gym_pybullet_adrp_tpu_torch.ops import hover_step as hs
+    from gym_pybullet_adrp_tpu_torch.ops import hover_variants as hv
+
+    P = drone_params(device=dev)
+    c = hs.hover_consts(P)
+    T = n_envs // 128
+    st0 = fast_hover.reset_packed([0.0, 0.0, 0.1125], n_envs,
+                                  device=dev).packed
+    acts = ((torch.rand((n_steps, 4, T, 128), generator=gen, device=dev)
+             - 0.5) * 0.1).contiguous()
+    out = {}
+    for mode, kw in (("random", {}), ("injected", {"actions": acts})):
+        pairs = (
+            ("hover_rollout_v2(exact_sqrt=True) == hover_rollout("
+             "smallangle=False)",
+             hv.hover_rollout_v2(P, st0, 9, n_steps, exact_sqrt=True, **kw),
+             hs.hover_rollout(P, st0, 9, n_steps, smallangle=False, **kw)),
+            ("hover_rollout_v3 == hover_rollout()",
+             hv.hover_rollout_v3(P, st0, 9, n_steps, **kw),
+             hs.hover_rollout(P, st0, 9, n_steps, **kw)))
+        for name, a, b in pairs:
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{name} ({mode}): not bit for bit")
+            print(f"[14] {name}, {mode} mode: equal bit for bit", flush=True)
+
+    def vs_plain(label, got, ref):
+        """hover_errs of (state, acc[, resets]) against the plain run;
+        returns the largest error."""
+        torch.cuda.synchronize()
+        errs = hover_errs(label, got[0], ref[0], got[1], ref[1])
+        if len(got) > 2:
+            check(torch.equal(got[2], ref[2]), f"{label}: resets differ")
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+        print(f"[14] {label} vs plain, {n_envs} envs x {n_steps} steps: "
+              f"state err {errs['pos/quat/vel']:.3g} / omega "
+              f"{errs['omega']:.3g}, acc err {errs['acc']:.3g}; bit for "
+              f"bit: {bitwise}", flush=True)
+        return errs["max"]
+
+    # each variant against its plain version in random mode (the same
+    # Philox draws); the injected mode is held below, on the timed run
+    variants = (("hover_rollout_v2", hv.hover_rollout_v2,
+                 hv.hover_rollout_v2_plain),
+                ("hover_rollout_v3", hv.hover_rollout_v3,
+                 hv.hover_rollout_v3_plain))
+    max_err = {}
+    for name, fn, pfn in variants:
+        flags = ({}, {"exact_sqrt": True}) if name.endswith("v2") else ({},)
+        for kw in flags:
+            label = name + ("(exact_sqrt=True)" if kw else "") + ", random"
+            max_err[name] = max(max_err.get(name, 0.0), vs_plain(
+                label, fn(P, st0, 13, n_steps, count_resets=True, **kw),
+                pfn(P, st0, 13, n_steps, count_resets=True, consts=c, **kw)))
+    # v2's sqrt-free test differs from exact_sqrt only where e2 < 1e-8
+    v2 = hv.hover_rollout_v2(P, st0, 0, n_steps, actions=acts)
+    v2s = hv.hover_rollout_v2(P, st0, 0, n_steps, actions=acts,
+                              exact_sqrt=True)
+    differ = ((v2[0] != v2s[0]).any(dim=0) | (v2[1] != v2s[1]))
+    ch, steps = list(st0), torch.zeros((T, 128), dtype=torch.int32,
+                                       device=dev)
+    acc = torch.zeros((T, 128), device=dev)
+    near = torch.zeros((T, 128), dtype=torch.bool, device=dev)
+    for k in range(n_steps):
+        ch, steps, acc, reward, _ = hs.rollout_step_plain(
+            c, ch, acts[k], steps, acc, False, True)
+        # reward 2.0 exactly <=> e2^2 below half an ulp of 2: e2 < 3.4e-4,
+        # which takes in every lane with e2 < 1e-8
+        near |= reward == 2.0
+    check(not bool((differ & ~near).any()),
+          "hover_rollout_v2 differs from exact_sqrt off the near lanes")
+    print(f"[14] hover_rollout_v2 vs exact_sqrt=True (injected): "
+          f"{int(differ.sum())} lanes differ; {int(near.sum())} lanes came "
+          f"within e2 < 3.4e-4 of the target (where e2 < 1e-8 can differ "
+          f"from sqrt(e2) < 1e-4)", flush=True)
+    for name, fn, pfn in variants:
+        def run(n, fn=fn):
+            st = st0
+            total = torch.zeros((), device=dev)
+            for i in range(n):
+                st, acc_ = fn(P, st, 7 + i, n_steps, consts=c)
+                total = total + acc_.sum()
+            return st, total
+
+        run(2)
+        torch.cuda.synchronize()
+        with plain, LaunchCount(kernels, totals) as la:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            st, total = run(launches)
+            stop.record()
+            torch.cuda.synchronize()
+        check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+        check(la[name] == launches, f"{name} launches {dict(la)}")
+        check(torch.isfinite(st).all().item(), f"{name}: non-finite")
+        secs = start.elapsed_time(stop) / 1e3
+        r = {"env_steps_per_sec": n_envs * n_steps * launches / secs,
+             "loop_ms": secs / launches * 1e3}
+        r["ms"] = device_ms(lambda fn=fn: fn(P, st0, 3, n_steps, consts=c))
+
+        def plain_fn(pfn=pfn):
+            return pfn(P, st0, 0, n_steps, actions=acts, consts=c)
+
+        # the plain version, timed once; its result holds the kernel's
+        # injected mode
+        torch.cuda.synchronize()
+        start.record()
+        ref = plain_fn()
+        stop.record()
+        torch.cuda.synchronize()
+        r["plain_ms"] = start.elapsed_time(stop)
+        r["max_abs_err"] = max(max_err[name], vs_plain(
+            name + ", injected",
+            fn(P, st0, 0, n_steps, actions=acts, consts=c), ref))
+        step_ops = count_ops(lambda pfn=pfn: pfn(
+            P, st0, 0, 2, actions=acts[:2], consts=c))
+        r.update(bound((st0,), (st0, st0[0]), step_ops * n_steps // 2))
+        out[name] = r
+        print(f"[14] {name}, {n_envs} envs, {launches} launches x "
+              f"{n_steps} steps: {r['env_steps_per_sec']:.6g} env-steps/s, "
+              f"{r['loop_ms']:.4g} ms per launch in the loop, "
+              f"{r['ms']:.4g} ms on the device, plain "
+              f"{r['plain_ms']:.4g} ms, bound {r['bound_ms']:.4g} ms "
+              f"({r['bound_by']}); max abs err vs plain "
+              f"{r['max_abs_err']:.3g}; on {gpu}", flush=True)
+    return out
+
+
+def phase15(dev, gpu, op_calibrate, kernels, plain, totals):
+    """K6 (op_chain) against its plain version at the calibration's rows:
+    all 13 ops at iters 2, and the fma chain at 256 iters; then the
+    calibration of the card's per-op costs."""
+    rows = op_calibrate.ROWS
+    res = {"max_abs_err": 0.0}
+    x = (0.3 + 0.9 * torch.rand((rows, 128), device=dev,
+                                generator=torch.Generator(device=dev)
+                                .manual_seed(0)))
+
+    def chain_err(op, got, ref):
+        """Max abs error of a chain against the plain one, held to
+        EXACT_OPS / CHAIN_RTOL; NaNs must agree."""
+        torch.cuda.synchronize()
+        nan = torch.isnan(ref)
+        check(torch.equal(torch.isnan(got), nan), f"op_chain[{op}]: NaNs")
+        d = (got - ref).abs()[~nan]
+        err = float(d.max()) if d.numel() else 0.0
+        rel = float((d / ref.abs()[~nan]).max()) if d.numel() else 0.0
+        if op in EXACT_OPS:
+            check(err == 0.0, f"op_chain[{op}]: not bit for bit ({err})")
+        else:
+            check(rel <= CHAIN_RTOL, f"op_chain[{op}]: rel err {rel}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        return err
+
+    errs = {op: chain_err(op, op_calibrate.op_chain(op, x, 2),
+                          op_calibrate.op_chain_plain(op, x, 2))
+            for op in op_calibrate.OPS}
+    print(f"[15] op_chain vs plain (iters 2, {rows} x 128): max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (exact for {EXACT_OPS}, rel tol {CHAIN_RTOL} for the rest; "
+          "log's chain is NaN on both sides)", flush=True)
+    iters = 256
+    xr = torch.full((rows, 128), 0.62, device=dev)
+
+    def kern():
+        return op_calibrate.op_chain("fma", xr, iters)
+
+    res["ms"] = device_ms(kern, 5)
+    # the plain chain, timed once; its result holds the kernel's
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = op_calibrate.op_chain_plain("fma", xr, iters)
+    stop.record()
+    torch.cuda.synchronize()
+    res["plain_ms"] = start.elapsed_time(stop)
+    err = chain_err("fma", kern(), ref)
+    res.update(bound((xr,), (xr,), count_ops(
+        lambda: op_calibrate.op_chain_plain("fma", xr, 1)) * iters))
+    print(f"[15] op_chain[fma], {rows} x 128, iters {iters}: max abs err vs "
+          f"plain {err:.3g} (bit for bit); {res['ms']:.4g} ms on the device, "
+          f"plain {res['plain_ms']:.4g} ms, bound {res['bound_ms']:.4g} ms "
+          f"({res['bound_by']}: {res['ops']:.4g} ops)", flush=True)
+    t0 = time.perf_counter()
+    with plain, LaunchCount(kernels, totals) as la:
+        weights, rates, used = op_calibrate.calibrate(verbose=False)
+    check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+    check(la["op_chain"] > 0, f"calibration launches {dict(la)}")
+    check(all(math.isfinite(w) and w > 0 for w in weights.values()),
+          f"weights {weights}")
+    print(f"[15] calibrate() ({la['op_chain']} op_chain launches, "
+          f"{time.perf_counter() - t0:.1f} s), {rows} x 128 elements, "
+          f"~10 ms chains, on {gpu}:", flush=True)
+    for op in op_calibrate.OPS:
+        print(f"    {op:9s} iters {used[op]:7d}  {rates[op] / 1e12:9.5f}T "
+              f"op-elements/s  weight vs fma {weights[op]:8.4f}")
+    res.update(weights=weights, rates=rates, iters=used)
+    return res
+
+
+def phase16(dev, gpu, kernels, plain, totals, iters=10):
+    """Hover PPO: make_ppo_core over fast_hover.ppo_adapter at 8192 envs
+    (VALIDATION.md:272), make_ppo over the hover env at test_rl.py:96's
+    settings (its learning floor), and one iteration of make_ppo at 4096
+    envs."""
+    from gym_pybullet_adrp_tpu_torch.envs import core, fast_hover, rl as rlenv
+    from gym_pybullet_adrp_tpu_torch.models.drone import drone_params
+    from gym_pybullet_adrp_tpu_torch.rl import ppo
+    from gym_pybullet_adrp_tpu_torch.utils.enums import ActionType
+
+    P = drone_params(device=dev)
+    cfg = ppo.PPOConfig(n_envs=8192, n_steps=64)
+    init, train_step, _ = ppo.make_ppo_core(
+        cfg, fast_hover.ppo_adapter(P, 8192, device=dev), device=dev)
+    ts = init(0)
+    ms, losses, rewards = [], [], []
+    t0 = time.perf_counter()
+    with plain, LaunchCount(kernels, totals) as la:
+        for _ in range(iters):
+            times = {}
+            t1 = time.perf_counter()
+            ts, m = train_step(ts, times=times)
+            times["iteration"] = time.perf_counter() - t1
+            ms.append(times)
+            losses.append(float(m["loss"]))
+            rewards.append(float(m["mean_reward"]))
+    wall = time.perf_counter() - t0
+    check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+    check(la["ctrl_step_packed"] == 64 * iters, f"ppo launches {dict(la)}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    steady = ms[1:]
+    phase_ms = {k: 1e3 * sum(t[k] for t in steady) / len(steady)
+                for k in steady[0]}
+    rate = cfg.batch_size / (phase_ms["iteration"] / 1e3)
+    print(f"[16] make_ppo_core(8192 envs x 64 steps, fast_hover.ppo_adapter"
+          f"), {iters} iterations in {wall:.1f} s: {la['ctrl_step_packed']} "
+          f"ctrl_step_packed launches, no plain call; losses finite; mean "
+          f"reward {rewards[0]:.5g} -> {rewards[-1]:.5g}; ms per iteration "
+          f"(2-{iters}): " + ", ".join(f"{k} {v:.4g}"
+                                       for k, v in phase_ms.items())
+          + f"; {rate:.6g} env-steps/s on {gpu}", flush=True)
+    res = {"phase_ms": phase_ms, "env_steps_per_sec": rate,
+           "losses": losses, "rewards": rewards}
+
+    rl_cfg = rlenv.RLConfig(aviary=core.AviaryConfig(ctrl_freq=30),
+                            act_type=ActionType.ONE_D_RPM)
+    init_xyz, init_rpy = [[0.0, 0.0, 0.1125]], [[0.0, 0.0, 0.0]]
+    small = ppo.PPOConfig(n_envs=64, n_steps=32, n_minibatches=4, n_epochs=4)
+    init, train_step, eval_rollout = ppo.make_ppo(small, rl_cfg, P, init_xyz,
+                                                  init_rpy, device=dev)
+    ts = init(0)
+    t0 = time.perf_counter()
+    curve = []
+    for _ in range(16):
+        ts, m = train_step(ts)
+        curve.append(float(m["mean_reward"]))
+    ret = float(eval_rollout(ts.params, 240)[0])
+    print(f"[16] make_ppo(ONE_D_RPM hover, 64 envs x 32 steps, 4 x 4), 16 "
+          f"iterations in {time.perf_counter() - t0:.1f} s: mean reward "
+          f"{curve[0]:.5g} -> {curve[-1]:.5g} (floor: +0.05); deterministic "
+          f"eval return (240 steps) {ret:.5g}", flush=True)
+    check(curve[-1] > curve[0] + 0.05,
+          f"make_ppo: reward {curve[0]} -> {curve[-1]}")
+    res.update(make_ppo_curve=curve, make_ppo_eval_return=ret)
+
+    big = ppo.PPOConfig(n_envs=4096, n_steps=64)
+    init, train_step, _ = ppo.make_ppo(big, rl_cfg, P, init_xyz, init_rpy,
+                                       device=dev)
+    ts = init(0)
+    ts, _ = train_step(ts)
+    times = {}
+    t0 = time.perf_counter()
+    ts, m = train_step(ts, times=times)
+    it = time.perf_counter() - t0
+    check(math.isfinite(float(m["loss"])), "make_ppo 4096: loss")
+    res["make_ppo_4096_ms"] = {k: v * 1e3 for k, v in times.items()}
+    res["make_ppo_4096_env_steps_per_sec"] = big.batch_size / it
+    print(f"[16] make_ppo(ONE_D_RPM hover, 4096 envs x 64 steps), one "
+          f"iteration: {it * 1e3:.4g} ms ("
+          + ", ".join(f"{k} {v * 1e3:.4g}" for k, v in times.items())
+          + f"), {big.batch_size / it:.6g} env-steps/s", flush=True)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -718,9 +1313,10 @@ def main():
         return 2
     sys.path.insert(0, str(REPO))
     from gym_pybullet_adrp_tpu_torch.ops import (
-        _build, race_rollout, race_step, race_window,
+        _build, hover_step, hover_variants, race_rollout, race_step,
+        race_window,
     )
-    from gym_pybullet_adrp_tpu_torch import eval_race
+    from gym_pybullet_adrp_tpu_torch import eval_race, op_calibrate
 
     dev = torch.device("cuda:0")
     out_dir = Path(args.out) if args.out else None
@@ -843,12 +1439,22 @@ def main():
                              EP=ref[4])
 
     # ---- 5. the slice: evaluate the shipped level1 policy ---------------------
-    main_launches = {"race_window": 0, "race_step_fused": 0,
-                     "race_step_fused[policy]": 0, "race_rollout": 0}
-    plain = PlainCalls(race_step, race_window, race_rollout)
+    kernels = {"race_window": race_window.race_window,
+               "race_step_fused": race_step.race_step_fused,
+               "race_rollout": race_rollout.race_rollout,
+               "ctrl_step_packed": hover_step.ctrl_step_packed,
+               "hover_rollout": hover_step.hover_rollout,
+               "hover_rollout_v2": hover_variants.hover_rollout_v2,
+               "hover_rollout_v3": hover_variants.hover_rollout_v3,
+               "op_chain": op_calibrate.op_chain}
+    main_launches = dict.fromkeys(list(kernels) + ["race_step_fused[policy]"],
+                                  0)
+    plain = PlainCalls(race_step=race_step, race_window=race_window,
+                       race_rollout=race_rollout, hover_step=hover_step,
+                       hover_variants=hover_variants,
+                       op_calibrate=op_calibrate)
     policy = str(REPO / "results/level1_robust.msgpack")
-    with plain, LaunchCount(race_step, race_window, race_rollout,
-                            main_launches) as launches:
+    with plain, LaunchCount(kernels, main_launches) as launches:
         t0 = time.perf_counter()
         m_fused = eval_race.evaluate(policy, "level1", 128, device=dev)
         t_fused = time.perf_counter() - t0
@@ -968,11 +1574,20 @@ def main():
     ppo_err = phase9(dev, n_envs)
 
     # ---- 10. training at full width -------------------------------------------
-    train_out = phase10(dev, gpu, eval_race, race_step, race_window,
-                        race_rollout, plain, main_launches)
+    train_out = phase10(dev, gpu, eval_race, kernels, plain, main_launches)
 
     # ---- 11. times: race_rollout at the bench workload ------------------------
     times11 = phase11(dev, gen, gpu, eval_race, race_step, race_rollout)
+
+    # ---- 12-16. the hover env family --------------------------------------
+    results["ctrl_step_packed"] = phase12(dev, gen, gpu, kernels, plain,
+                                          main_launches)
+    results["hover_rollout"] = phase13(dev, gen, gpu, kernels, plain,
+                                       main_launches)
+    results.update(phase14(dev, gen, gpu, kernels, plain, main_launches))
+    results["op_chain"] = phase15(dev, gpu, op_calibrate, kernels, plain,
+                                  main_launches)
+    hover_ppo = phase16(dev, gpu, kernels, plain, main_launches)
 
     src = "gym_pybullet_adrp_tpu_torch/csrc/"
     kernels = [
@@ -988,6 +1603,21 @@ def main():
         {"name": "race_rollout", "route": "cuda",
          "source": src + "race_rollout.cu",
          "replaces": "gym_pybullet_adrp_tpu/ops/pallas_race_step.py:750"},
+        {"name": "ctrl_step_packed", "route": "cuda",
+         "source": src + "hover_step.cu",
+         "replaces": "gym_pybullet_adrp_tpu/ops/pallas_step.py:151"},
+        {"name": "hover_rollout", "route": "cuda",
+         "source": src + "hover_rollout.cu",
+         "replaces": "gym_pybullet_adrp_tpu/ops/pallas_step.py:369"},
+        {"name": "hover_rollout_v2", "route": "cuda",
+         "source": src + "hover_rollout.cu",
+         "replaces": "results/hover_vpu/ab_v2.py:163"},
+        {"name": "hover_rollout_v3", "route": "cuda",
+         "source": src + "hover_rollout.cu",
+         "replaces": "results/hover_vpu/ab_v3.py:164"},
+        {"name": "op_chain", "route": "cuda",
+         "source": src + "op_chain.cu",
+         "replaces": "scripts/vpu_calibrate.py:84"},
     ]
     for k in kernels:
         r = results[k["name"]]
@@ -1006,7 +1636,8 @@ def main():
             "profile": prof, "scaling": scaling,
             "seconds": {"eval_fused": t_fused, "eval_unfused": t_unfused},
             "ppo_card_vs_cpu": ppo_err, "training": train_out,
-            "rollout_times": times11,
+            "rollout_times": times11, "hover_ppo": hover_ppo,
+            "launches": main_launches,
         }, indent=1, default=str))
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -10,13 +10,26 @@
   ``Linear.weight`` is (out, in), so ``weight = kernel.T``.
 * ``flax_from_actor_critic``: its inverse, the params tree of the flax
   module with the weights of a port ``ActorCritic`` (numpy float32).
+* The hover env: ``fast_hover_state_from_numpy`` (the packed (13, T, 128)
+  state and its step counts), ``phys_state_from_numpy``,
+  ``core_state_from_numpy`` and ``rl_state_from_numpy`` (any object with
+  the JAX ``PhysState``/``CoreState``/``RLState`` attributes, e.g. a
+  vmapped JAX state: leaves carry the batch axis first, as the port's),
+  ``drone_params_from_numpy`` (an object with ``DroneParams``' fields).
+  The port has no PID controller yet, so an ``RLState``'s ``ctrl`` is
+  dropped.
 """
 
 import numpy as np
 import torch
 
+from .envs.core import CoreState
+from .envs.fast_hover import FastHoverState
 from .envs.race_rl_rowfast import RowRaceState
+from .envs.rl import RLState
+from .models.drone import DroneParams
 from .models.policy import ActorCritic
+from .ops.dynamics import PhysState
 
 _LEAVES = ("S", "R", "GG", "OO", "EP")
 
@@ -77,3 +90,42 @@ def flax_from_actor_critic(net: ActorCritic):
          for i, layer in enumerate(layers)}
     p["log_std"] = np32(net.log_std)
     return {"params": p}
+
+
+def _f32(x, device):
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+
+
+def _i32(x, device):
+    return torch.from_numpy(np.array(x, dtype=np.int32)).to(device)
+
+
+def fast_hover_state_from_numpy(packed, step_count,
+                                device="cuda") -> FastHoverState:
+    """The fast hover env's state: the (13, T, 128) float32 block and the
+    (T, 128) int32 step counts."""
+    return FastHoverState(packed=_f32(packed, device),
+                          step_count=_i32(step_count, device))
+
+
+def phys_state_from_numpy(phys, device="cuda") -> PhysState:
+    return PhysState(*(_f32(getattr(phys, k), device)
+                       for k in PhysState._fields))
+
+
+def core_state_from_numpy(core, device="cuda") -> CoreState:
+    return CoreState(phys=phys_state_from_numpy(core.phys, device),
+                     last_clipped_action=_f32(core.last_clipped_action,
+                                              device),
+                     step_counter=_i32(core.step_counter, device))
+
+
+def rl_state_from_numpy(state, device="cuda") -> RLState:
+    return RLState(core=core_state_from_numpy(state.core, device), ctrl=None,
+                   action_buffer=_f32(state.action_buffer, device),
+                   target_pos=_f32(state.target_pos, device))
+
+
+def drone_params_from_numpy(params, device="cuda") -> DroneParams:
+    return DroneParams(*(_f32(getattr(params, k), device)
+                         for k in DroneParams._fields))

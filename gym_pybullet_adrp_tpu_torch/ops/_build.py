@@ -1,13 +1,14 @@
-"""Build the race kernels with nvcc at first use and bind them with ctypes.
+"""Build the port's kernels with nvcc at first use and bind them with ctypes.
 
 ``library(name)`` returns the shared library of ``csrc/<name>.cu``, with
 its plain C interface, built for ``sm_90a`` (Hopper) under
 ``gym_pybullet_adrp_tpu_torch/_build/`` (listed in ``.gitignore``). The
 first call compiles every source that has no library yet, one nvcc per
 source, all started together. A file name carries a hash of its source,
-the shared headers and the flags, so an edited source is rebuilt and a
-stale library is never loaded. Only sources in this package are
-compiled; nothing is downloaded.
+the headers it includes (followed through ``#include "..."``) and the
+flags, so an edited source or header rebuilds the libraries that include
+it, and only those, and a stale library is never loaded. Only sources in
+this package are compiled; nothing is downloaded.
 
 Flags: ``-fmad=false`` keeps every multiply and add separately rounded,
 as PyTorch's elementwise kernels round them, so each kernel agrees with
@@ -18,6 +19,7 @@ intervenes; no ``--use_fast_math`` (IEEE division and square root).
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,8 +28,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("race_window", "race_step", "race_rollout")
-HEADERS = ("race_window.cuh", "race_step.cuh", "policy.cuh")
+SOURCES = ("race_window", "race_step", "race_rollout", "hover_step",
+           "hover_rollout", "op_chain")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 ARCH = "sm_90a"
 NVCC_FLAGS = (
     f"-gencode=arch=compute_{ARCH[3:]},code={ARCH}",
@@ -51,14 +54,25 @@ def find_nvcc() -> str:
             return cand
     raise RuntimeError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
-        "/usr/local/cuda/bin): the race kernels are built from "
+        "/usr/local/cuda/bin): the port's kernels are built from "
         "gym_pybullet_adrp_tpu_torch/csrc at first use on a CUDA machine"
     )
 
 
+def includes(fname) -> list:
+    """``fname`` and the csrc headers it includes, transitively, in order
+    of first appearance."""
+    seen = [fname]
+    for f in seen:
+        for inc in _INCLUDE.findall((CSRC / f).read_text()):
+            if (CSRC / inc).exists() and inc not in seen:
+                seen.append(inc)
+    return seen
+
+
 def _target(name) -> Path:
     h = hashlib.sha256()
-    for fname in (name + ".cu",) + HEADERS:
+    for fname in includes(name + ".cu"):
         h.update(fname.encode())
         h.update((CSRC / fname).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -110,6 +124,11 @@ def library(name):
             "race_window": ("adrp_race_window", [vp, vp, vp, vp, ll, vp, vp]),
             "race_step": ("adrp_race_step", [vp, vp, vp]),
             "race_rollout": ("adrp_race_rollout", [vp, vp, vp]),
+            "hover_step": ("adrp_hover_step", [vp, vp, vp, ll, vp, i, vp]),
+            "hover_rollout": ("adrp_hover_rollout",
+                              [vp, vp, vp, vp, vp, ll, i, ctypes.c_uint, i,
+                               i, vp, i, vp]),
+            "op_chain": ("adrp_op_chain", [i, vp, vp, ll, i, vp]),
         }
         libs = {}
         for n, path in build().items():

@@ -1,8 +1,9 @@
-"""PPO learner over the batched race env, in PyTorch.
+"""PPO learner over batched envs, in PyTorch.
 
 Counterpart of gym_pybullet_adrp_tpu/rl/ppo.py (``PPOConfig`` :34,
 ``EnvAdapter`` :82, ``Transition`` :98, ``TrainState`` :107, ``ppo_loss``
-:117, ``grouped_update`` :135, ``make_ppo_core`` :162). The JAX package
+:117, ``grouped_update`` :135, ``make_ppo_core`` :162, ``hover_adapter``
+:378, ``make_ppo`` :444, ``flatten_obs`` :458). The JAX package
 computes the learner in XLA, outside any Pallas kernel, so here it is
 plain PyTorch with autograd: GAE as a reverse loop over time, then
 ``n_epochs`` x ``n_minibatches`` clipped-surrogate updates on block-
@@ -27,6 +28,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..envs import rl as rlenv
+from ..models.drone import DroneParams
 from ..models.policy import (
     ActorCritic, gaussian_entropy, gaussian_logp, sample_action,
 )
@@ -243,12 +246,15 @@ def minibatch_epoch(cfg: PPOConfig, tx, net, opt_state, traj, advantages,
 
 def make_ppo_core(cfg: PPOConfig, adapter: EnvAdapter, hidden=(64, 64),
                   rollout_override=None, device="cuda"):
-    """Build ``(init_fn, train_step)`` for any EnvAdapter.
+    """Build ``(init_fn, train_step, eval_rollout)`` for any EnvAdapter.
 
     ``init_fn(seed) -> TrainState``. ``train_step(ts, times=None) -> (ts,
     metrics)`` runs one PPO iteration; with a ``times`` dict it also
     records the seconds of its phases ("rollout", "gae", "update"),
-    synchronising the device at each boundary.
+    synchronising the device at each boundary. ``eval_rollout(net,
+    n_steps) -> (n_envs,)`` is each env's deterministic (mean-action)
+    return over its first episode within ``n_steps`` steps from a fresh
+    reset (SB3 ``evaluate_policy(deterministic=True)``).
 
     ``rollout_override(ts) -> (ts, traj, metrics)`` replaces the default
     rollout (policy forward, sample, ``adapter.step`` per step), as the
@@ -343,4 +349,72 @@ def make_ppo_core(cfg: PPOConfig, adapter: EnvAdapter, hidden=(64, 64),
         }
         return ts, metrics
 
-    return init_fn, train_step
+    @torch.no_grad()
+    def eval_rollout(net, n_steps: int):
+        env_state, obs = adapter.batched_reset()
+        obs = obs.to(torch.float32)
+        ret = torch.zeros(obs.shape[0], device=obs.device)
+        done_seen = torch.zeros(obs.shape[0], dtype=torch.bool,
+                                device=obs.device)
+        for _ in range(n_steps):
+            mean, _, _ = net(obs)
+            env_state, obs, reward, done = adapter.step(
+                env_state, torch.clamp(mean, -1.0, 1.0))
+            obs = obs.to(torch.float32)
+            ret = ret + torch.where(done_seen, 0.0, reward)
+            done_seen = done_seen | done
+        return ret
+
+    return init_fn, train_step, eval_rollout
+
+
+# ---------------------------------------------------------------------------
+# hover/multihover adapter (the reference learn.py tasks)
+
+
+def hover_adapter(cfg: PPOConfig, rl_cfg: rlenv.RLConfig,
+                  params: DroneParams, init_xyzs, init_rpys,
+                  device="cuda") -> EnvAdapter:
+    """EnvAdapter over ``cfg.n_envs`` envs of ``envs.rl`` (obs: each
+    drone's KIN obs with its action history, flattened over drones)."""
+    n_drones = rl_cfg.aviary.num_drones
+    reset_template = rlenv.rl_reset(rl_cfg, init_xyzs, init_rpys, 1,
+                                    device=device)
+
+    def batched_reset():
+        env_state = rlenv.rl_reset(rl_cfg, init_xyzs, init_rpys, cfg.n_envs,
+                                   device=device)
+        obs = rlenv.compute_obs(rl_cfg, env_state)
+        return env_state, obs.reshape(cfg.n_envs, -1)
+
+    def step(env_state, action):
+        act = action.reshape(-1, n_drones, rl_cfg.act_size)
+        env_state, obs, reward, term, trunc = rlenv.autoreset_step(
+            rl_cfg, params, reset_template, env_state, act)
+        return env_state, obs.reshape(obs.shape[0], -1), reward, term | trunc
+
+    return EnvAdapter(batched_reset=batched_reset, step=step,
+                      obs_dim=n_drones * rl_cfg.obs_size,
+                      act_dim=n_drones * rl_cfg.act_size)
+
+
+def make_ppo(cfg: PPOConfig, rl_cfg: rlenv.RLConfig, params: DroneParams,
+             init_xyzs, init_rpys, hidden=(64, 64), device="cuda"):
+    """Hover-task PPO (the learner of examples/learn.py): ``(init_fn,
+    train_step, eval_rollout)`` as ``make_ppo_core``'s, with
+    ``eval_rollout`` returning the first env's return only."""
+    adapter = hover_adapter(cfg, rl_cfg, params, init_xyzs, init_rpys,
+                            device=device)
+    init_fn, train_step, eval_core = make_ppo_core(cfg, adapter,
+                                                   hidden=hidden,
+                                                   device=device)
+
+    def eval_rollout(net, n_steps: int):
+        return eval_core(net, n_steps)[:1]
+
+    return init_fn, train_step, eval_rollout
+
+
+def flatten_obs(cfg: rlenv.RLConfig, obs):
+    """(..., N, D) per-drone obs -> flat (..., N*D) vector."""
+    return obs.reshape(obs.shape[:-2] + (-1,))

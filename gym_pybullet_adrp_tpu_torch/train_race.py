@@ -120,9 +120,9 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
             env, n_steps, kernel_chunk=kernel_chunk)
         adapter = adapter._replace(batched_reset=b_reset, step=fused_step)
 
-    init_fn, train_step = make_ppo_core(cfg, adapter, hidden=hidden,
-                                        rollout_override=rollout_override,
-                                        device=device)
+    init_fn, train_step, _ = make_ppo_core(
+        cfg, adapter, hidden=hidden, rollout_override=rollout_override,
+        device=device)
     ts = init_fn(ppo_seed)
     if init:
         warm = ckpt.load_policy(init, device)

@@ -1,4 +1,4 @@
-"""Global constants the race path reads (from gym_pybullet_adrp_tpu.utils.constants).
+"""Global constants of the port (from gym_pybullet_adrp_tpu.utils.constants).
 
 Plain Python floats: combined with float32 tensors they act as float32
 scalars, as JAX's weakly typed Python scalars do in the reference.
@@ -9,6 +9,9 @@ import math
 # math
 RAD_TO_DEG = 180.0 / math.pi
 DEG_TO_RAD = math.pi / 180.0
+
+# gravity of the simulator (the firmware uses 9.81, control/mellinger.py)
+G = 9.8
 
 # lsy-drone-racing geometry
 VISIBILITY_RANGE = 0.45

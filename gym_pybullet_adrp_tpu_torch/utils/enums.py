@@ -1,4 +1,4 @@
-"""Enumerations the race path reads (copies of gym_pybullet_adrp_tpu.utils.enums).
+"""Enumerations of the race and hover paths (copies of gym_pybullet_adrp_tpu.utils.enums).
 
 Copied rather than imported: importing any ``gym_pybullet_adrp_tpu``
 module runs that package's ``__init__``, which needs gymnasium.
@@ -16,7 +16,8 @@ class DroneModel(Enum):
 
 
 class Physics(IntEnum):
-    """Physics implementations; the race kernels run PYB only."""
+    """Physics implementations; the race and hover kernels run PYB only,
+    ops/dynamics.py all six."""
 
     PYB = 0
     DYN = 1
@@ -31,3 +32,21 @@ class RaceMode(IntEnum):
 
     COMPARE = 0
     COMPETE = 1
+
+
+class ActionType(Enum):
+    """Action types of the RL envs (envs/rl.py)."""
+
+    MEL = "mel"
+    RPM = "rpm"
+    PID = "pid"
+    VEL = "vel"
+    ONE_D_RPM = "one_d_rpm"
+    ONE_D_PID = "one_d_pid"
+
+
+class ObservationType(Enum):
+    """Observation types of the RL envs."""
+
+    KIN = "kin"
+    RGB = "rgb"

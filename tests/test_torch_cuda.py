@@ -1,6 +1,7 @@
-"""Port: the CUDA race kernels against their plain PyTorch versions, and
-the K-step rollout kernel against K launches of the step kernel, on the
-card. Marked ``cuda``: they skip where no CUDA device is present.
+"""Port: the CUDA kernels against their plain PyTorch versions (the race
+kernels, then the hover kernels and op chains), and the K-step race
+rollout kernel against K launches of the step kernel, on the card.
+Marked ``cuda``: they skip where no CUDA device is present.
 
 This file imports no JAX, so it also runs on a machine without it:
   python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -182,3 +183,171 @@ def test_rollout_kernel_equals_step_launches(dev, mode):
     order = [6, 7, 5, 8] + ([9, 10, 11] if pack is not None else [])
     for g, j in zip(got[5:], order):    # REW, DONE, OBS, INFO[, policy]
         assert torch.equal(g, torch.stack([o[j] for o in outs])), j
+
+
+# ---- the hover kernels (K1, K2, K7, K8) and the op chains (K6) -------------
+# Both sides round every + - * / and sqrt alike; K1 and the exact
+# integrator also call sinf/cosf, which may differ from PyTorch's CUDA
+# sin/cos in the last bit: atol 1e-6 on the state, 1e-5 on the body rates
+# and 1e-4 on the reward sums. The small-angle rollout (K2's default, K8)
+# has no libm call and is held equal bit for bit; so are K7/K8 against the
+# K2 instantiations they equal. The op chains: bit for bit for the correctly
+# rounded ops, rtol 1e-5 for the libm ones.
+
+from gym_pybullet_adrp_tpu_torch import op_calibrate  # noqa: E402
+from gym_pybullet_adrp_tpu_torch.envs import fast_hover  # noqa: E402
+from gym_pybullet_adrp_tpu_torch.models.drone import drone_params  # noqa: E402
+from gym_pybullet_adrp_tpu_torch.ops import hover_step as hs  # noqa: E402
+from gym_pybullet_adrp_tpu_torch.ops import hover_variants as hv  # noqa: E402
+from gym_pybullet_adrp_tpu_torch.ops import quat as quat_ops  # noqa: E402
+
+
+def _hover_state(dev, n_envs=1024, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    P = drone_params(device=dev)
+    pos = u(-1, 1, n_envs, 3) + torch.tensor([0.0, 0.0, 1.5], device=dev)
+    quat = quat_ops.from_euler_xyz(u(-0.3, 0.3, n_envs, 3))
+    packed = hs.pack_state(pos, quat, u(-1, 1, n_envs, 3),
+                           u(-2, 2, n_envs, 3))
+    packed[2, 0] = 0.02                      # 128 envs in ground contact
+    packed[9, 0] = -1.0
+    rpm = (u(0.9, 1.1, 4, n_envs // 128, 128) * P.hover_rpm).contiguous()
+    rpm[:, 0] = 0.0
+    return P, packed, rpm, gen
+
+
+def test_hover_step_kernel_matches_plain(dev):
+    P, packed, rpm, _ = _hover_state(dev)
+    before = hs.ctrl_step_packed.launches
+    got = hs.ctrl_step_packed(P, packed, rpm, 8, 1 / 240)
+    ref = hs.ctrl_step_packed_plain(P, packed, rpm, 8, 1 / 240)
+    torch.cuda.synchronize()
+    assert hs.ctrl_step_packed.launches == before + 1
+    torch.testing.assert_close(got[:10], ref[:10], atol=1e-6, rtol=0)
+    torch.testing.assert_close(got[10:], ref[10:], atol=1e-5, rtol=0)
+    assert (got[2, 0] == 0.0125).all()
+
+
+@pytest.mark.parametrize("smallangle", [True, False],
+                         ids=["smallangle", "exact"])
+@pytest.mark.parametrize("mode", ["injected", "random"])
+def test_hover_rollout_kernel_matches_plain(dev, smallangle, mode):
+    _, _, _, gen = _hover_state(dev)
+    P = drone_params(device=dev)
+    st = fast_hover.reset_packed([0.0, 0.0, 0.1125], 1024, device=dev).packed
+    acts = ((torch.rand((64, 4, 8, 128), generator=gen, device=dev) - 0.5)
+            * 0.1) if mode == "injected" else None
+    before = hs.hover_rollout.launches
+    got = hs.hover_rollout(P, st, 21, 64, smallangle=smallangle,
+                           actions=acts, count_resets=True)
+    ref = hs.hover_rollout_plain(P, st, 21, 64, smallangle=smallangle,
+                                 actions=acts, count_resets=True)
+    torch.cuda.synchronize()
+    assert hs.hover_rollout.launches == before + 1
+    if smallangle:
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    else:
+        torch.testing.assert_close(got[0][:10], ref[0][:10], atol=1e-6,
+                                   rtol=0)
+        torch.testing.assert_close(got[0][10:], ref[0][10:], atol=1e-5,
+                                   rtol=0)
+        torch.testing.assert_close(got[1], ref[1], atol=1e-4, rtol=0)
+        assert torch.equal(got[2], ref[2])
+
+
+@pytest.mark.parametrize("mode", ["injected", "random"])
+def test_variants_equal_rollout_instantiations(dev, mode):
+    P, _, _, gen = _hover_state(dev)
+    st = fast_hover.reset_packed([0.0, 0.0, 0.1125], 1024, device=dev).packed
+    acts = ((torch.rand((32, 4, 8, 128), generator=gen, device=dev) - 0.5)
+            * 0.1) if mode == "injected" else None
+    pairs = [(hv.hover_rollout_v2(P, st, 3, 32, exact_sqrt=True,
+                                  actions=acts),
+              hs.hover_rollout(P, st, 3, 32, smallangle=False, actions=acts)),
+             (hv.hover_rollout_v3(P, st, 3, 32, actions=acts),
+              hs.hover_rollout(P, st, 3, 32, actions=acts))]
+    for a, b in pairs:
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("variant", ["v2", "v2_exact_sqrt", "v3"])
+@pytest.mark.parametrize("mode", ["injected", "random"])
+def test_variant_kernels_match_plain(dev, variant, mode):
+    _, _, _, gen = _hover_state(dev)
+    P = drone_params(device=dev)
+    st = fast_hover.reset_packed([0.0, 0.0, 0.1125], 1024, device=dev).packed
+    acts = ((torch.rand((32, 4, 8, 128), generator=gen, device=dev) - 0.5)
+            * 0.1) if mode == "injected" else None
+    kw = dict(actions=acts, count_resets=True)
+    if variant == "v3":
+        fn, before = hv.hover_rollout_v3, hv.hover_rollout_v3.launches
+        got = fn(P, st, 4, 32, **kw)
+        ref = hv.hover_rollout_v3_plain(P, st, 4, 32, **kw)
+    else:
+        kw["exact_sqrt"] = variant == "v2_exact_sqrt"
+        fn, before = hv.hover_rollout_v2, hv.hover_rollout_v2.launches
+        got = fn(P, st, 4, 32, **kw)
+        ref = hv.hover_rollout_v2_plain(P, st, 4, 32, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    if variant == "v3":
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    else:
+        torch.testing.assert_close(got[0][:10], ref[0][:10], atol=1e-6,
+                                   rtol=0)
+        torch.testing.assert_close(got[0][10:], ref[0][10:], atol=1e-5,
+                                   rtol=0)
+        torch.testing.assert_close(got[1], ref[1], atol=1e-4, rtol=0)
+        assert torch.equal(got[2], ref[2])
+
+
+@pytest.mark.parametrize("op", list(op_calibrate.OPS))
+def test_op_chain_kernel_matches_plain(dev, op):
+    x = 0.3 + 0.9 * torch.rand((64, 128), device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(1))
+    before = op_calibrate.op_chain.launches
+    got = op_calibrate.op_chain(op, x, 2)
+    ref = op_calibrate.op_chain_plain(op, x, 2)
+    torch.cuda.synchronize()
+    assert op_calibrate.op_chain.launches == before + 1
+    if op in ("fma", "mul", "add", "max", "div", "sqrt"):
+        assert torch.equal(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0,
+                                   equal_nan=True)
+
+
+def test_hover_wrappers_validate_inputs(dev):
+    P = drone_params(device=dev)
+    st = torch.zeros((13, 1, 128), device=dev)
+    rpm = torch.zeros((4, 1, 128), device=dev)
+    for args in ((st.double(), rpm), (st[:, :, :64], rpm), (st, rpm.cpu()),
+                 (st, rpm[:3])):
+        with pytest.raises((TypeError, ValueError)):
+            hs.ctrl_step_packed(P, *args, 8, 1 / 240)
+    with pytest.raises(TypeError):
+        hs.hover_rollout(P, st.double(), 0, 4)
+    with pytest.raises(ValueError):
+        hs.hover_rollout(P, st, 0, 4, actions=torch.zeros((3, 4, 1, 128),
+                                                          device=dev))
+    with pytest.raises(ValueError):
+        hv.hover_rollout_v2(P, st, 0, 4, actions=torch.zeros(
+            (4, 4, 1, 128)))
+    with pytest.raises(ValueError):
+        hv.hover_rollout_v3(P, st[:, :, :64], 0, 4)
+    # <smallangle, near_sqrt> is not built: the launch reports an error
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        hs.launch_rollout("hover_rollout", hs.hover_consts(P), st, 0, 4,
+                          True, True, None, False)
+    with pytest.raises(TypeError):
+        op_calibrate.op_chain("sin", torch.zeros((8, 128), device=dev,
+                                                 dtype=torch.float64), 2)
+    with pytest.raises(ValueError):
+        op_calibrate.op_chain("sin", torch.zeros((8, 64), device=dev), 2)

@@ -216,9 +216,9 @@ def test_train_step_matches_jax():
     adapter = ppo.EnvAdapter(
         batched_reset=lambda: (None, torch.zeros((n_envs, OBS))),
         step=None, obs_dim=OBS, act_dim=4)
-    init, train_step = ppo.make_ppo_core(cfg, adapter,
-                                         rollout_override=override,
-                                         device="cpu")
+    init, train_step, _ = ppo.make_ppo_core(cfg, adapter,
+                                            rollout_override=override,
+                                            device="cpu")
     ts = init(0)
     ts.params.load_state_dict(actor_critic_from_flax(
         jax.tree_util.tree_map(np.asarray, params0)).state_dict())

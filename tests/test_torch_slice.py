@@ -110,8 +110,9 @@ def test_slice_reproduces_published_lap():
 
 
 def test_package_imports_no_jax():
-    """Importing every module of the port, the trainer and the learner
-    included, leaves jax, flax, yaml and gymnasium unimported (the card's
+    """Importing every module of the port, the trainer, the learner and
+    the hover env, kernels and calibration included, leaves jax, flax,
+    yaml, gymnasium, msgpack and the JAX package unimported (the card's
     machine has none of them)."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -121,7 +122,9 @@ def test_package_imports_no_jax():
         "bad = [m for m in ('jax', 'flax', 'yaml', 'gymnasium', "
         "'msgpack', 'gym_pybullet_adrp_tpu') if m in sys.modules]\n"
         "new = ['gym_pybullet_adrp_tpu_torch.' + m for m in ("
-        "'train_race', 'rl.ppo', 'ops.race_rollout')]\n"
+        "'train_race', 'rl.ppo', 'ops.race_rollout', 'envs.fast_hover', "
+        "'envs.rl', 'ops.hover_step', 'ops.hover_variants', "
+        "'op_calibrate')]\n"
         "missing = [m for m in new if m not in sys.modules]\n"
         "print('LOADED', bad, 'MISSING', missing)\n"
         "sys.exit(1 if bad or missing else 0)\n"

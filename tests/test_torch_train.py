@@ -19,7 +19,10 @@ from flax.serialization import msgpack_restore as flax_restore
 from gym_pybullet_adrp_tpu.models.policy import ActorCritic as FlaxAC
 from gym_pybullet_adrp_tpu.rl import checkpoint as jck
 from gym_pybullet_adrp_tpu_torch import convert, eval_race, train_race
+from gym_pybullet_adrp_tpu_torch.envs import core, fast_hover
 from gym_pybullet_adrp_tpu_torch.envs import race_rl_rowfast as prow
+from gym_pybullet_adrp_tpu_torch.envs import rl as rlenv
+from gym_pybullet_adrp_tpu_torch.models import drone
 from gym_pybullet_adrp_tpu_torch.rl import checkpoint as pck
 from gym_pybullet_adrp_tpu_torch.rl import ppo
 
@@ -130,7 +133,11 @@ def test_cli_refuses_what_is_not_ported(flag):
 @pytest.mark.parametrize("fn", [
     eval_race.evaluate, prow.make_row_env, prow.RowRaceEnv.__init__,
     pck.load_policy, convert.row_state_from_numpy, train_race.train,
-    ppo.make_ppo_core,
+    ppo.make_ppo_core, ppo.make_ppo, ppo.hover_adapter,
+    fast_hover.make_step, fast_hover.ppo_adapter, fast_hover.reset_packed,
+    drone.drone_params, rlenv.rl_reset, core.core_reset,
+    convert.fast_hover_state_from_numpy, convert.rl_state_from_numpy,
+    convert.drone_params_from_numpy,
 ], ids=lambda fn: fn.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
