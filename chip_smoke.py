@@ -60,6 +60,12 @@ PPO_TOL = 1e-5
 # H100 SXM data sheet: float32 outside the tensor cores, and HBM3
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# the device times PERF.md section 6 records for the earlier design, in
+# which one thread per env ran the whole MLP (H100 80GB HBM3, 700.00 W),
+# printed beside this run's
+EARLIER_MS = {"race_step_fused": 0.08233, "race_step_fused[policy]": 0.3079,
+              "race_rollout[policy]": 3.715, "race_rollout[actions, 1]": 1.167,
+              "race_rollout[actions, 2]": 2.292, "train rollout phase": 25.31}
 S_GROUPS = {
     "pos/quat/vel": [*range(0, 10), 24, 25, 26],
     "omega/rpy": [10, 11, 12, 21, 22, 23],
@@ -355,18 +361,71 @@ class LaunchCount(dict):
             self.totals[k] += v
 
 
+def policy_net(env, hidden, seed=3):
+    """A random ActorCritic on the env's device (log_std -1: calm
+    flights; random biases, which the init zeroes, so that every tensor of
+    the pack is read at its offset)."""
+    from gym_pybullet_adrp_tpu_torch.models.policy import ActorCritic
+
+    gen = torch.Generator().manual_seed(seed)
+    net = ActorCritic(env.obs_size, 4, hidden, generator=gen)
+    with torch.no_grad():
+        net.log_std.fill_(-1.0)
+        for name, p in net.named_parameters():
+            if name.endswith("bias"):
+                p.uniform_(-0.1, 0.1, generator=gen)
+    return net.to(env.device)
+
+
 def policy_pack(env, hidden, seed=3):
-    """The pack of a random ActorCritic (log_std -1: calm flights)."""
+    """The in-kernel pack of ``policy_net``."""
     from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import (
         pack_policy_params,
     )
-    from gym_pybullet_adrp_tpu_torch.models.policy import ActorCritic
 
-    net = ActorCritic(env.obs_size, 4, hidden,
-                      generator=torch.Generator().manual_seed(seed))
-    with torch.no_grad():
-        net.log_std.fill_(-1.0)
-    return pack_policy_params(net.to(env.device))
+    return pack_policy_params(policy_net(env, hidden, seed))
+
+
+def launch_lines(race_step, kernel, env, hidden):
+    """How ``kernel`` launches with and without the policy at ``env``'s
+    shape, and ptxas' registers, stack and spills of both instantiations;
+    returns (text, dict)."""
+    from gym_pybullet_adrp_tpu_torch.ops import _build
+    from gym_pybullet_adrp_tpu_torch.race_kernel_times import ptxas_entries
+
+    lay, _ = race_step.policy_layout(env.obs_size, hidden)
+    geo = {mode: race_step.launch_geometry(kernel, env.N, env.Tb,
+                                           lay if mode == "policy" else None)
+           for mode in ("policy", "actions")}
+    ptx = {k: v for k, v in ptxas_entries(_build.build_info["ptxas"]).items()
+           if k.startswith(kernel + "_kernel")}
+    text = "; ".join(
+        f"{mode}: {g['blocks']} blocks x {g['threads']} threads, "
+        f"{g['smem_bytes']} B dynamic shared memory per block, "
+        f"{g['registers']} registers, {g['local_bytes']} B local per thread"
+        for mode, g in geo.items()) + "; ptxas: " + "; ".join(
+        f"{k} {v['registers']} registers, {v['stack']} B stack, "
+        f"{v['spill_stores']}/{v['spill_loads']} B spill stores/loads"
+        for k, v in ptx.items())
+    return text, {"geometry": geo, "ptxas": ptx}
+
+
+def eager_policy_ms(env, hidden, gen):
+    """Device ms of the eager ActorCritic forward and Gaussian sample
+    (``nn.Linear``s, cuBLAS; never used on the port's path) over the env's
+    agents: the yardstick of the in-kernel MLP."""
+    from gym_pybullet_adrp_tpu_torch.models.policy import sample_action
+
+    net = policy_net(env, hidden)
+    obs = torch.randn((env.n_envs * env.N, env.obs_size), generator=gen,
+                      device=env.device)
+
+    @torch.no_grad()
+    def fwd():
+        mean, log_std, value = net(obs)
+        return sample_action(mean, log_std, gen), value
+
+    return device_ms(fwd)
 
 
 def k_steps(race_step, env, st, d, K, A=None, pack=None, obs=None,
@@ -399,15 +458,18 @@ def k_steps(race_step, env, st, d, K, A=None, pack=None, obs=None,
 
 
 def phase7(dev, gen, eval_race, race_step, n_envs):
-    """race_step with its policy option against the plain version: three
-    consecutive steps of getting_started 1-drone and twogates 2-drone
-    COMPETE at 64-64, one step at 256-128, each from the same inputs."""
+    """race_step with its policy option against the plain version, bit for
+    bit: three consecutive steps of getting_started 1-drone and twogates
+    2-drone COMPETE at 64-64, one step of each at 256-128, each from the
+    same inputs; then the trainer's launch timed beside the earlier
+    design's time and the eager policy forward."""
     from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import RowRaceState
 
     res = {"max_abs_err": 0.0}
     for cfg, nd, hidden, n_cmp in (("getting_started", 1, (64, 64), 3),
                                    ("twogates", 2, (64, 64), 3),
-                                   ("getting_started", 1, (256, 128), 1)):
+                                   ("getting_started", 1, (256, 128), 1),
+                                   ("twogates", 2, (256, 128), 1)):
         env = eval_race.make_eval_env(cfg, n_envs, dev, seed=8, n_drones=nd)
         pack = policy_pack(env, hidden)
         st = env.reset()
@@ -429,12 +491,12 @@ def phase7(dev, gen, eval_race, race_step, n_envs):
                         f"N={nd} step {i}]")
                 errs = check_step(name, dict(zip(STEP_OUT, out)),
                                   dict(zip(STEP_OUT, ref)))
+                check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                      f"{name}: not equal to the plain version bit for bit")
                 res["max_abs_err"] = max(res["max_abs_err"], errs["max"])
-                print(f"[7] {name}: ACT err {errs['ACT']:.3g}, LOGP err "
-                      f"{errs['LOGP']:.3g}, VAL err {errs['VAL']:.3g}, OBS "
-                      f"err {errs['OBS']:.3g}, REW err {errs['REW']:.3g} "
-                      f"(tol {POLICY_TOL} on ACT/LOGP/VAL, phase 4's on the "
-                      f"rest)", flush=True)
+                print(f"[7] {name}: equal to the plain version bit for bit "
+                      f"(all {len(out)} outputs; ACT err {errs['ACT']:.3g}, "
+                      f"OBS err {errs['OBS']:.3g})", flush=True)
                 out = ref
             st, obs = RowRaceState(*out[:5]), out[5]
         if (cfg, hidden) == ("getting_started", (64, 64)):
@@ -450,13 +512,24 @@ def phase7(dev, gen, eval_race, race_step, n_envs):
 
             res["ms"] = (kernel_ms(kern, "race_step_kernel")
                          or cuda_ms(kern, 20))
+            res["queued_ms"] = device_ms(kern)
+            res["eager_policy_ms"] = eager_policy_ms(env, hidden, gen)
             res["plain_ms"] = cuda_ms(plain, 2, warmup=1)
             res.update(bound(inputs, plain(), count_ops(plain)))
+            text, res["launch"] = launch_lines(race_step, "race_step", env,
+                                               hidden)
             print(f"[7] race_step with the policy, getting_started 1 drone, "
-                  f"{n_envs} envs, 64-64: {res['ms']} ms on the device, "
-                  f"plain {res['plain_ms']:.4g} ms, bound "
-                  f"{res['bound_ms']:.4g} ms ({res['bound_by']}: "
-                  f"{res['ops']:.4g} ops, {res['bytes']:.4g} B)", flush=True)
+                  f"{n_envs} envs, 64-64: {res['ms']:.4g} ms on the device "
+                  f"({res['queued_ms']:.4g} ms per launch queued back to "
+                  f"back; the per-thread MLP took "
+                  f"{EARLIER_MS['race_step_fused[policy]']} ms), plain "
+                  f"{res['plain_ms']:.4g} ms, bound {res['bound_ms']:.4g} ms "
+                  f"({res['bound_by']}: {res['ops']:.4g} ops, "
+                  f"{res['bytes']:.4g} B); yardstick: the eager ActorCritic "
+                  f"forward + sample over the {n_envs} agents (cuBLAS, not "
+                  f"on the port's path) {res['eager_policy_ms']:.4g} ms on "
+                  f"the device", flush=True)
+            print(f"[7] race_step launches: {text}", flush=True)
     return res
 
 
@@ -521,11 +594,12 @@ def phase8(dev, gen, eval_race, race_step, race_rollout, n_envs):
             plain3 = dict(zip(ROLL_OUT, race_rollout.race_rollout_plain(
                 *args3, **k3, **kw3)))
             errs = check_step(name + " K=3 vs plain", got3, plain3)
+            check(all(torch.equal(got3[k], plain3[k]) for k in got3),
+                  f"{name} K=3: not equal to the plain version bit for bit")
             res["max_abs_err"] = max(res["max_abs_err"], errs["max"])
-            print(f"[8] race_rollout[policy, K=3] vs its plain version: ACT "
-                  f"err {errs['ACT']:.3g}, VAL err {errs['VAL']:.3g}, OBS "
-                  f"err {errs['OBS']:.3g}, max abs err {errs['max']:.3g}",
-                  flush=True)
+            print(f"[8] race_rollout[policy, K=3] vs its plain version: "
+                  f"equal bit for bit ({sorted(got3)}; max abs err "
+                  f"{errs['max']:.3g})", flush=True)
             kw_t = dict(kw, telemetry=False)
 
             def kern():
@@ -536,6 +610,7 @@ def phase8(dev, gen, eval_race, race_step, race_rollout, n_envs):
 
             res["ms"] = (kernel_ms(kern, "race_rollout_kernel", n=5)
                          or cuda_ms(kern, 5))
+            res["queued_ms"] = device_ms(kern, n=5)
             res["plain_ms"] = cuda_ms(plain_fn, 1, warmup=0)
             # the plain rollout is K identical plain steps: count one
             step_ops = count_ops(lambda: race_rollout.race_rollout_plain(
@@ -543,11 +618,17 @@ def phase8(dev, gen, eval_race, race_step, race_rollout, n_envs):
                 d.RSTO[:1], **dict(pol, actn_seq=seq[:1]), **kw_t))
             res.update(bound(args + (pack, obs, seq), kern(),
                              K * step_ops))
+            text, res["launch"] = launch_lines(race_step, "race_rollout",
+                                               env, (64, 64))
             print(f"[8] race_rollout[policy, getting_started 1 drone, "
-                  f"{n_envs} envs, K={K}]: {res['ms']} ms on the device per "
-                  f"launch, plain {res['plain_ms']:.4g} ms, bound "
-                  f"{res['bound_ms']:.4g} ms ({res['bound_by']}: "
-                  f"{res['ops']:.4g} ops, {res['bytes']:.4g} B)", flush=True)
+                  f"{n_envs} envs, K={K}]: {res['ms']:.4g} ms on the device "
+                  f"per launch ({res['queued_ms']:.4g} ms queued back to "
+                  f"back; the per-thread MLP took "
+                  f"{EARLIER_MS['race_rollout[policy]']} ms), plain "
+                  f"{res['plain_ms']:.4g} ms, bound {res['bound_ms']:.4g} ms "
+                  f"({res['bound_by']}: {res['ops']:.4g} ops, "
+                  f"{res['bytes']:.4g} B)", flush=True)
+            print(f"[8] race_rollout launches: {text}", flush=True)
     return res
 
 
@@ -635,7 +716,9 @@ def phase10(dev, gpu, eval_race, kernels, plain, totals, n_envs=4096,
           f"launches {dict(la)}; mean reward first 5 iters {first:.5g}, "
           f"last 5 {last:.5g}; ms per iteration (iterations 2-{iters}): "
           + ", ".join(f"{k} {v:.4g}" for k, v in phase_ms.items())
-          + f"; {rate:.6g} env-steps/s on {gpu}", flush=True)
+          + f"; {rate:.6g} env-steps/s on {gpu}; the rollout phase took "
+          f"{EARLIER_MS['train rollout phase']} ms with the per-thread MLP",
+          flush=True)
     check(last > first, f"mean reward did not rise ({first} -> {last})")
     # the device's idle share over one traced iteration
     t_wall, events = traced(lambda: res["train_step"](res["ts"]))
@@ -716,17 +799,16 @@ def phase11(dev, gen, gpu, eval_race, race_step, race_rollout, n_envs=4096):
                     s.GG, s.OO, s.EP, d.RST[0], d.RSTG[0], d.RSTO[0], **kw)
                 s = RowRaceState(*o[:5])
 
-        r = {"k5_ms": kernel_ms(k5, "race_rollout_kernel", n=10),
+        # the trace may drop the launches: then time them queued
+        r = {"k5_ms": (kernel_ms(k5, "race_rollout_kernel", n=10)
+                       or device_ms(k5, n=5)),
              "k5_loop_ms": cuda_ms(k5, 5)}
         per = kernel_ms(k4x32, "race_step_kernel", n=2)
         r["k4x32_ms"] = None if per is None else K * per
         r["k4x32_loop_ms"] = cuda_ms(k4x32, 3)
         r["plain_ms"] = cuda_ms(lambda: race_rollout.race_rollout_plain(
             *args, emit_obs=False, **kw), 1, warmup=0)
-        # a launch of over a millisecond hides the host's enqueue, so the
-        # host loop's time stands in where the trace has no device time
-        dev_ms = r["k5_ms"] or r["k5_loop_ms"]
-        r["env_steps_per_sec"] = n_envs * K / dev_ms * 1e3
+        r["env_steps_per_sec"] = n_envs * K / r["k5_ms"] * 1e3
 
         def shown(ms):
             return "not measured" if ms is None else f"{ms:.4g} ms"
@@ -734,13 +816,15 @@ def phase11(dev, gen, gpu, eval_race, race_step, race_rollout, n_envs=4096):
         out[nd] = r
         print(f"[11] race_rollout, getting_started {nd} drone(s) "
               f"{'COMPETE' if nd > 1 else 'COMPARE'}, {n_envs} envs, K={K}, "
-              f"actions: {shown(r['k5_ms'])} on the device per launch, "
+              f"actions: {r['k5_ms']:.4g} ms on the device per launch, "
               f"{r['k5_loop_ms']:.4g} ms per launch in a host loop "
-              f"({r['env_steps_per_sec']:.6g} env-steps/s from the "
-              f"{'device' if r['k5_ms'] else 'host-loop'} time); 32 "
+              f"({r['env_steps_per_sec']:.6g} env-steps/s from the device "
+              f"time); 32 "
               f"race_step launches {shown(r['k4x32_ms'])} on the device, "
               f"{r['k4x32_loop_ms']:.4g} ms in a host loop; plain "
-              f"{r['plain_ms']:.4g} ms; on {gpu}", flush=True)
+              f"{r['plain_ms']:.4g} ms; on {gpu} (earlier "
+              f"{EARLIER_MS[f'race_rollout[actions, {nd}]']} ms on the "
+              f"device)", flush=True)
     return out
 
 
@@ -1526,12 +1610,13 @@ def main():
     n_prof = 64
     prof = profile_steps(env, rows, draws, kw, race_step.race_step_fused,
                          n_prof)
+    k4["ms"] = (prof["kernel_ms"] / prof["launches"] if prof["launches"]
+                else k4["loop_ms"])
     print(f"[6] profile, {n_prof} kernel steps: wall {prof['wall_ms']:.4g} "
           f"ms, {prof['launches']} race_step launches traced, "
           f"{prof['kernel_ms']} ms on the device (device idle share "
-          f"{prof['idle_share']})", flush=True)
-    k4["ms"] = (prof["kernel_ms"] / prof["launches"] if prof["launches"]
-                else k4["loop_ms"])
+          f"{prof['idle_share']}): {k4['ms']:.4g} ms per launch (earlier "
+          f"{EARLIER_MS['race_step_fused']} ms)", flush=True)
     st = env.reset()
     k4_in = (st.S, rows[0], st.R, st.GG, st.OO, st.EP, draws.RST,
              draws.RSTG, draws.RSTO)

@@ -7,14 +7,18 @@
 // an action sequence A_seq (K, 4, T, 128), or the policy inside the step
 // (policy.cuh) with the obs carried from each step to the next.
 //
-// Mapping: one thread per env, as K4 (race_step.cu), looping over the K
-// steps. Each step is the device function race_step_env (race_step.cuh),
-// the body K4 runs, so K launches of K4 and one of K5 give the same bits.
-// Step k+1 reads the state columns that the same thread wrote at step k
-// (the blocks are updated in place in S_out/R_out/GG_out/OO_out/EP_out),
-// and in policy mode the obs that thread wrote into OBS[k-1]: no thread
-// reads another's writes, so the loop needs no synchronisation. The
-// COMPETE opponent channels are the same thread's other drones.
+// Mapping: as K4 (race_step.cu), looping over the K steps, in two
+// instantiations. Action mode: one thread per env, 128 per block. Policy
+// mode: one block per 32-env tile, 512 threads; each step is (a) the
+// tile's MLP on all sixteen warps (policy_tile), then (b) the env step on
+// warp 0, lane = env. Each step is the device function race_step_env
+// (race_step.cuh), the body K4 runs, after the same policy phase, so K
+// launches of K4 and one of K5 give the same bits. Step k+1 reads the
+// state columns that the same thread wrote at step k (the blocks are
+// updated in place in S_out/R_out/GG_out/OO_out/EP_out), which needs no
+// synchronisation; in policy mode the whole block reads the obs that warp
+// 0 wrote into OBS[k-1], after a barrier. The COMPETE opponent channels
+// are the same thread's other drones.
 //
 // Per-step operands are offset by k; a reset-draw sequence of length 1
 // (deterministic configs: every step's reset rows are equal) has stride
@@ -24,8 +28,10 @@
 // its per-step HBM round trip; here the state columns stay in L1/L2
 // between steps (1.9 MB of S at 4096 envs x 2 drones against a 50 MB L2)
 // and the launch overhead of K-1 launches is saved. What remains is K4's
-// cost K times: the serial per-thread work of the window and, in policy
-// mode, the MLP, at one thread per env (4096 threads on 132 SMs).
+// cost K times: the serial per-thread chain of the window, at one
+// latency-bound thread per env (4096 threads on 132 SMs). The MLP of
+// policy mode, spread over the tile's 512 threads, now costs less than
+// the window it feeds.
 
 #include "race_step.cuh"
 
@@ -43,14 +49,24 @@ struct RolloutArgs {
   int K;
 };
 
-__global__ void __launch_bounds__(128)
+template <bool POLICY>
+__global__ void __launch_bounds__(POLICY ? POLICY_THREADS : STEP_THREADS)
 race_rollout_kernel(const RolloutArgs r, const StepConsts c) {
   const long long E = (long long)c.Tb * LANE;
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
   const long long nc = E * c.N;
   const long long C = obs_channels(c);
-  const bool policy = r.PP != nullptr;
+  const int lane = threadIdx.x % 32;
+  long long e;
+  PolicySmem s{};
+  if constexpr (POLICY) {
+    e = (long long)blockIdx.x * TILE + lane;
+    extern __shared__ float smem[];
+    s = policy_smem(smem, r.PP, c.pl, c.N);
+    stage_pack(r.PP, c.pl, s);  // once for the K steps
+  } else {
+    e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= E) return;  // no barrier in action mode
+  }
   for (int k = 0; k < r.K; ++k) {
     StepPtrs p;
     const bool first = k == 0;
@@ -59,7 +75,7 @@ race_rollout_kernel(const RolloutArgs r, const StepConsts c) {
     p.GG = first ? r.GG : r.GG_out;
     p.OO = first ? r.OO : r.OO_out;
     p.EP = first ? r.EP : r.EP_out;
-    p.A = policy ? nullptr : r.A_seq + k * ACT_DIM * nc;
+    p.A = POLICY ? nullptr : r.A_seq + k * ACT_DIM * nc;
     p.RST = r.RST_seq + k * r.rst_stride;
     p.RSTG = r.RSTG_seq + k * r.rstg_stride;
     p.RSTO = r.RSTO_seq + k * r.rsto_stride;
@@ -75,13 +91,18 @@ race_rollout_kernel(const RolloutArgs r, const StepConsts c) {
     p.REW = r.REW + k * nc;
     p.DONE = r.DONE + k * E;
     p.INFO = r.INFO != nullptr ? r.INFO + k * INFO_CH * nc : nullptr;
-    if (policy) {
+    if constexpr (POLICY) {
       p.OBS_IN = first ? r.OBS0 : r.OBS + (k - 1) * C * nc;
       p.PP = r.PP;
       p.ACTN = r.ACTN_seq + k * ACT_DIM * nc;
       p.ACT = r.ACT + k * ACT_DIM * nc;
       p.LOGP = r.LOGP + k * nc;
       p.VAL = r.VAL + k * nc;
+      // step k-1's obs, written by warp 0, is read by every warp
+      if (!first) __syncthreads();
+      policy_tile(p.OBS_IN, p.PP, c.pl, p.ACTN, p.ACT, p.LOGP, p.VAL, c.N,
+                  E, e - lane, s);
+      if (threadIdx.x < 32 && e < E) race_step_env(p, c, e, s.act + lane);
     } else {
       p.OBS_IN = nullptr;
       p.PP = nullptr;
@@ -89,8 +110,8 @@ race_rollout_kernel(const RolloutArgs r, const StepConsts c) {
       p.ACT = nullptr;
       p.LOGP = nullptr;
       p.VAL = nullptr;
+      race_step_env(p, c, e, nullptr);
     }
-    race_step_env(p, c, e);
   }
 }
 
@@ -100,11 +121,28 @@ race_rollout_kernel(const RolloutArgs r, const StepConsts c) {
 // stream's device current. Returns the cudaError_t of the launch.
 extern "C" int adrp_race_rollout(const adrp::RolloutArgs* r,
                                  const adrp::StepConsts* c, void* stream) {
-  const long long envs = (long long)c->Tb * adrp::LANE;
-  if (envs <= 0 || r->K <= 0) return 0;
-  const int threads = 128;
-  const long long blocks = (envs + threads - 1) / threads;
-  adrp::race_rollout_kernel<<<(unsigned)blocks, threads, 0,
-                              (cudaStream_t)stream>>>(*r, *c);
+  if (c->Tb <= 0 || r->K <= 0) return 0;
+  const bool policy = r->PP != nullptr;
+  const adrp::StepLaunch g = adrp::step_launch(*c, policy);
+  if (policy) {
+    const int err =
+        adrp::allow_smem(adrp::race_rollout_kernel<true>, g.smem);
+    if (err != 0) return err;
+    adrp::race_rollout_kernel<true><<<g.blocks, g.threads, g.smem,
+                                      (cudaStream_t)stream>>>(*r, *c);
+  } else {
+    adrp::race_rollout_kernel<false><<<g.blocks, g.threads, 0,
+                                       (cudaStream_t)stream>>>(*r, *c);
+  }
   return (int)cudaGetLastError();
+}
+
+// out = [blocks, threads, dynamic shared bytes, registers, local bytes]
+// of a launch with (policy != 0) or without the policy.
+extern "C" int adrp_race_rollout_geometry(const adrp::StepConsts* c,
+                                          int policy, long long* out) {
+  const adrp::StepLaunch g = adrp::step_launch(*c, policy != 0);
+  return policy
+             ? adrp::launch_report(adrp::race_rollout_kernel<true>, g, out)
+             : adrp::launch_report(adrp::race_rollout_kernel<false>, g, out);
 }

@@ -1,8 +1,8 @@
 // One race RL step for one env, as a device function shared by the fused
 // step kernel (race_step.cu, K4) and the K-step rollout kernel
 // (race_rollout.cu, K5): the window statics from the FULLSTATE action (or
-// from the policy forward, policy.cuh), the firmware window
-// (race_window.cuh), the control-rate tail, and the autoreset.
+// from the clipped action of the policy phase, policy.cuh), the firmware
+// window (race_window.cuh), the control-rate tail, and the autoreset.
 //
 // Replaces the body of gym_pybullet_adrp_tpu/ops/pallas_race_step.py
 // (_step_core :151), which the JAX package also shares between its two
@@ -15,7 +15,9 @@
 // done) need no communication between threads: a drone's post-window
 // state is written to S_out and read back by the same thread. Drone d of
 // env e is column d * Tb * 128 + e of every (C, T, 128) block, so
-// neighbouring threads touch neighbouring floats.
+// neighbouring threads touch neighbouring floats. With the policy, the
+// kernels first run policy_tile over the block (all its warps), then this
+// function on warp 0, lane l owning env e0 + l of the block's 32-env tile.
 //
 // In-place use: every block may be its own output (S == S_out, R ==
 // R_out, GG == GG_out, OO == OO_out, EP == EP_out), as K5 carries its
@@ -34,10 +36,19 @@ constexpr int R_CH = 14;
 constexpr int RST_CH = 10;
 constexpr int INFO_CH = 5;
 
+// The policy's rows fit in shared memory at the limits: the widest obs (8
+// COMPETE drones, 8 gates, 8 obstacles) and hidden layers.
+static_assert((12 + 5 * MAX_G + 4 * MAX_O + 1 + 6 * (MAX_N - 1) +
+               4 * MAX_HIDDEN + ACT_DIM + 1 + 3 * MAX_N) *
+                      TILE * sizeof(float) <=
+                  MAX_SMEM,
+              "the policy's activations must fit in shared memory");
+
 // The blocks of one step (mirrors ops/race_step.py::StepPtrs). OBS may be
-// null (no observation output). With PP set the policy runs first: OBS_IN
-// (C, T, 128) and ACTN (4, T, 128) are its inputs, A is not read, and
-// ACT (4, T, 128), LOGP and VAL (T, 128) receive its outputs.
+// null (no observation output). With PP set the policy runs first
+// (policy_tile): OBS_IN (C, T, 128) and ACTN (4, T, 128) are its inputs,
+// A is not read, and ACT (4, T, 128), LOGP and VAL (T, 128) receive its
+// outputs.
 struct StepPtrs {
   const float *S, *A, *R, *GG, *OO, *EP, *RST, *RSTG, *RSTO, *noise;
   float *S_out, *R_out, *GG_out, *OO_out, *EP_out, *OBS, *REW, *DONE, *INFO;
@@ -62,6 +73,42 @@ struct StepConsts {
   float o_nom[3 * MAX_O];
 };
 
+// Launch geometry of K4 and K5. Without the policy: one thread per env,
+// STEP_THREADS per block (the env step is one latency-bound chain per
+// thread; 32, 64 and 128 threads time alike). With it: a 32-env tile per
+// block, POLICY_THREADS threads on the MLP, and its shared memory.
+constexpr int STEP_THREADS = 128;
+
+struct StepLaunch {
+  unsigned blocks;
+  int threads;
+  size_t smem;
+};
+
+inline StepLaunch step_launch(const StepConsts& c, bool policy) {
+  const long long envs = (long long)c.Tb * LANE;
+  if (!policy)
+    return {(unsigned)((envs + STEP_THREADS - 1) / STEP_THREADS),
+            STEP_THREADS, 0};
+  return {(unsigned)((envs + TILE - 1) / TILE), POLICY_THREADS,
+          policy_smem_bytes(c.pl, c.N)};
+}
+
+// The geometry, registers and local (stack) bytes per thread of one
+// instantiation of a kernel, for the C interfaces' *_geometry queries:
+// out = [blocks, threads, dynamic shared bytes, registers, local bytes].
+template <typename Kernel>
+inline int launch_report(Kernel kernel, const StepLaunch& g, long long* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  out[0] = g.blocks;
+  out[1] = g.threads;
+  out[2] = (long long)g.smem;
+  out[3] = attr.numRegs;
+  out[4] = (long long)attr.localSizeBytes;
+  return (int)err;
+}
+
 __host__ __device__ __forceinline__ int obs_channels(const StepConsts& c) {
   return 12 + 5 * c.G + 4 * c.O + 1 + (c.compete ? 6 * (c.N - 1) : 0);
 }
@@ -71,35 +118,26 @@ __device__ __forceinline__ int other_drone(int d, int j) {
   return j < d ? j : j + 1;
 }
 
+// `pact`: null to read the action from A, or, in policy mode, this env's
+// clipped actions from the policy phase, row 3 d + k at pact[(3 d + k) *
+// TILE] (policy.cuh).
 __device__ __forceinline__ void race_step_env(const StepPtrs& p,
                                               const StepConsts& c,
-                                              const long long e) {
+                                              const long long e,
+                                              const float* pact) {
   const long long E = (long long)c.Tb * LANE;  // envs
   const int N = c.N, G = c.G, O = c.O;
   const long long nc = E * N;  // agent columns of a (C, T, 128) block
   const float RAD_TO_DEG = F(RAD2DEG_D);
   float* OBS = p.OBS;
 
-  // ---- 0+1+2. (policy,) window statics from the action, the window -------
+  // ---- 1+2. window statics from the action, the window ------------------
   for (int d = 0; d < N; ++d) {
     const long long a = d * E + e;
     float act[3];
-    if (p.PP != nullptr) {
-      float n[ACT_DIM], raw[ACT_DIM], logp, val;
 #pragma unroll
-      for (int k = 0; k < ACT_DIM; ++k) n[k] = p.ACTN[k * nc + a];
-      policy_forward(p.PP, c.pl, p.OBS_IN + a, nc, n, raw, logp, val);
-#pragma unroll
-      for (int k = 0; k < ACT_DIM; ++k) p.ACT[k * nc + a] = raw[k];
-      p.LOGP[a] = logp;
-      p.VAL[a] = val;
-      // the clipped action drives the step; its yaw (x pi) is not read
-#pragma unroll
-      for (int k = 0; k < 3; ++k) act[k] = clipf(raw[k], -1.0f, 1.0f);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) act[k] = p.A[k * nc + a];
-    }
+    for (int k = 0; k < 3; ++k)
+      act[k] = pact != nullptr ? pact[(3 * d + k) * TILE] : p.A[k * nc + a];
     float s[S_CH];
 #pragma unroll
     for (int k = 0; k < S_CH; ++k) s[k] = p.S[k * nc + a];

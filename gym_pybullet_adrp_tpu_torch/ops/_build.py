@@ -79,10 +79,16 @@ def _target(name) -> Path:
     return BUILD_DIR / f"libadrp_{name}_{h.hexdigest()[:16]}.so"
 
 
+def _report(target: Path) -> Path:
+    """Where the ptxas report of a library is kept, beside it."""
+    return target.with_suffix(".ptxas.txt")
+
+
 def build() -> dict:
     """Compile every source without a library for its current text, in
     parallel; returns {name: library path}. Records ``build_info``
-    (wall seconds, which were cached, the ptxas report)."""
+    (wall seconds, which were cached, the ptxas report of every library,
+    kept beside it so that a cached library still has one)."""
     targets = {name: _target(name) for name in SOURCES}
     todo = {n: t for n, t in targets.items() if not t.exists()}
     t0 = time.perf_counter()
@@ -96,14 +102,14 @@ def build() -> dict:
             procs[name] = (cmd, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
-    reports, failed = [], []
+    failed = []
     for name, (cmd, tmp, proc) in procs.items():
         text = proc.communicate()[0]
-        reports.append(f"== {name}.cu\n{text}")
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{text}")
         else:
+            _report(todo[name]).write_text(text)
             os.replace(tmp, todo[name])
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -111,7 +117,10 @@ def build() -> dict:
         paths={n: str(t) for n, t in targets.items()},
         seconds=time.perf_counter() - t0,
         cached=sorted(set(SOURCES) - set(todo)),
-        ptxas="\n".join(reports),
+        ptxas="\n".join(
+            f"== {n}.cu\n" + (_report(t).read_text()
+                              if _report(t).exists() else "")
+            for n, t in targets.items()),
     )
     return targets
 
@@ -137,6 +146,10 @@ def library(name):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = i
             libs[n] = lib
+        for n in ("race_step", "race_rollout"):
+            fn = getattr(libs[n], f"adrp_{n}_geometry")
+            fn.argtypes = [vp, i, vp]
+            fn.restype = i
         libs["race_window"].adrp_error_string.argtypes = [i]
         libs["race_window"].adrp_error_string.restype = ctypes.c_char_p
         _libs.update(libs)

@@ -621,8 +621,6 @@ def race_step_fused_plain(kf, km, arm, ground_z, S, A, R, GG, OO, EP, RST,
 # the kernel's wrapper
 
 
-
-
 class StepConsts(ctypes.Structure):
     """Mirrors ``struct StepConsts`` in csrc/race_step.cuh field for field."""
 
@@ -736,6 +734,23 @@ def launch_error(name, err):
             f"{name} kernel launch failed: {_build.error_string(err)}")
 
 
+def launch_geometry(kernel, N, Tb, layout=None):
+    """How ``kernel`` ("race_step" or "race_rollout") launches for ``N``
+    drones and ``Tb`` * 128 envs, with the policy of ``layout`` or
+    without: {blocks, threads, smem_bytes (dynamic shared memory per
+    block), registers, local_bytes (stack per thread)}, as the library
+    itself computes and reports them."""
+    consts = StepConsts(N=int(N), Tb=int(Tb))
+    if layout is not None:
+        consts.pl = layout
+    out = (ctypes.c_longlong * 5)()
+    fn = getattr(_build.library(kernel), f"adrp_{kernel}_geometry")
+    launch_error(kernel, fn(ctypes.addressof(consts), int(layout is not None),
+                            out))
+    return dict(zip(("blocks", "threads", "smem_bytes", "registers",
+                     "local_bytes"), out))
+
+
 def race_step_fused(kf, km, arm, ground_z, S, A, R, GG, OO, EP, RST, RSTG,
                     RSTO, *, n_ticks, dt, spec_tail, noise_rows=None,
                     telemetry=False, elim_penalty=1.0, policy_pack=None,
@@ -747,8 +762,9 @@ def race_step_fused(kf, km, arm, ground_z, S, A, R, GG, OO, EP, RST, RSTG,
     ``policy_layout`` pack for ``policy_hidden``, with the previous obs
     ``obs_rows`` (C, T, 128) and draws ``actn`` (4, T, 128); ``A`` is then
     not read). CPU tensors take the plain version. CUDA tensors launch the
-    kernel (csrc/race_step.cu, one thread per env looping over its drones)
-    on the current stream, counting the launch in
+    kernel (csrc/race_step.cu: one thread per env looping over its drones;
+    with the policy, a 512-thread block per 32-env tile runs the MLP
+    first, ``launch_geometry``) on the current stream, counting the launch in
     ``race_step_fused.launches`` and, with the policy option, in
     ``race_step_fused.policy_launches``. Any other device raises."""
     dev = S.device

@@ -1,0 +1,202 @@
+"""Device times of the race kernels K4 and K5 at the race trainer's
+shapes on one card, for this checkout or others, in turns.
+
+  python3 -m gym_pybullet_adrp_tpu_torch.race_kernel_times [--tree DIR]...
+      [--out FILE]
+
+Each ``--tree`` (default: this checkout) runs in a process of its own, in
+the order given, importing the ``gym_pybullet_adrp_tpu_torch`` package
+found in DIR and building its kernels there, so a parent commit's package
+unpacked by ``git archive`` can be held against this one on the same card
+(list the trees as parent, change, change, parent). Each process prints
+one JSON line: the card's name and power limit, the ptxas report of the
+race step and rollout kernels (registers, stack frame, spills), and the
+device ms per launch (CUDA events around launches queued behind a spin
+kernel, so the host's enqueue is not timed) of
+  K4 with the policy: getting_started 4096 envs x 1 drone, 64-64;
+  K5 in policy mode: the same, K=16;
+  K5 in action mode: getting_started 4096 x 1 and x 2 COMPETE, K=32;
+  K4 without the policy: getting_started 4096 x 2 COMPETE.
+Needs a CUDA device and nvcc; imports no JAX.
+"""
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+N_ENVS = 4096
+
+
+def ptxas_entries(report):
+    """{kernel: {registers, stack, spill_stores, spill_loads}} of the race
+    step and rollout kernels in an ``nvcc -Xptxas -v`` report; a template
+    instantiation is named ``<true>`` (policy) or ``<false>``."""
+    out = {}
+    for block in report.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        base = next((k for k in ("race_step_kernel", "race_rollout_kernel")
+                     if k in mangled), None)
+        if base is None:
+            continue
+        name = base + ("<true>" if "ILb1E" in mangled else
+                       "<false>" if "ILb0E" in mangled else "")
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        out[name] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "stack": int(frame.group(1)) if frame else None,
+            "spill_stores": int(frame.group(2)) if frame else None,
+            "spill_loads": int(frame.group(3)) if frame else None,
+        }
+    return out
+
+
+def device_ms(fn, n=20, sleep_cycles=20_000_000):
+    """Device time per call of ``fn``: ``n`` calls queued behind a spin
+    kernel, so that the events time the launches back to back; the spin
+    is doubled until it outlasts the host's queueing."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(sleep_cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / n
+        sleep_cycles *= 2
+    raise RuntimeError(f"the host queued {n} calls in {host_ms} ms, longer "
+                       "than the spin")
+
+
+def policy_pack(env, hidden=(64, 64), seed=3):
+    """The pack of a random ActorCritic (log_std -1)."""
+    import torch
+    from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import (
+        pack_policy_params,
+    )
+    from gym_pybullet_adrp_tpu_torch.models.policy import ActorCritic
+
+    net = ActorCritic(env.obs_size, 4, hidden,
+                      generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        net.log_std.fill_(-1.0)
+    return pack_policy_params(net.to(env.device))
+
+
+def measure():
+    """The JSON record of the package on ``sys.path`` (see the module
+    docstring)."""
+    import torch
+    from gym_pybullet_adrp_tpu_torch import eval_race
+    from gym_pybullet_adrp_tpu_torch.ops import _build, race_rollout, race_step
+
+    if not torch.cuda.is_available():
+        raise SystemExit("race_kernel_times: no CUDA device")
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    _build.library("race_step")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    rec = {"card": card, "ptxas": ptxas_entries(_build.build_info["ptxas"]),
+           "ms": {}}
+
+    def env_of(nd):
+        env = eval_race.make_eval_env("getting_started", N_ENVS, dev, seed=7,
+                                      n_drones=nd)
+        return env, env.reset()
+
+    env, st = env_of(1)
+    pack = policy_pack(env)
+    obs = env.initial_obs_rows(st)
+    d = env.step_draws()
+    actn = torch.randn((4, env.T, 128), generator=gen, device=dev)
+    def kw_of(env):
+        return dict(n_ticks=env.n_ticks, dt=env.dt, spec_tail=env.spec_tail,
+                    telemetry=False)
+
+    kw = kw_of(env)
+    rec["ms"]["k4_policy"] = device_ms(lambda: race_step.race_step_fused(
+        env.kf, env.km, env.arm, env.ground_z, st.S, None, st.R, st.GG,
+        st.OO, st.EP, d.RST, d.RSTG, d.RSTO, noise_rows=d.noise_rows,
+        policy_pack=pack, obs_rows=obs, actn=actn, **kw))
+    K = 16
+    ds = env.stacked_draws(K)
+    seq = torch.randn((K, 4, env.T, 128), generator=gen, device=dev)
+    rec["ms"]["k5_policy_k16"] = device_ms(lambda: race_rollout.race_rollout(
+        env.kf, env.km, env.arm, env.ground_z, st.S, None, st.R, st.GG,
+        st.OO, st.EP, ds.RST, ds.RSTG, ds.RSTO, noise_rows_seq=ds.noise_rows,
+        policy_pack=pack, obs_rows=obs, actn_seq=seq, **kw), n=5)
+    K = 32
+    for nd in (1, 2):
+        env, st = env_of(nd)
+        kw = kw_of(env)
+        ds = env.stacked_draws(K)
+        A = torch.rand((K, 4, env.T, 128), generator=gen, device=dev) * 2 - 1
+        rec["ms"][f"k5_actions_k32_{nd}drone"] = device_ms(
+            lambda: race_rollout.race_rollout(
+                env.kf, env.km, env.arm, env.ground_z, st.S, A, st.R, st.GG,
+                st.OO, st.EP, ds.RST, ds.RSTG, ds.RSTO, emit_obs=False, **kw),
+            n=5)
+    d = env.step_draws()
+    rec["ms"]["k4_2drone"] = device_ms(lambda: race_step.race_step_fused(
+        env.kf, env.km, env.arm, env.ground_z, st.S, A[0], st.R, st.GG,
+        st.OO, st.EP, d.RST, d.RSTG, d.RSTO, noise_rows=None, **kw))
+    return rec
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", action="append", default=None,
+                    help="a directory holding gym_pybullet_adrp_tpu_torch/ "
+                         "(repeatable; default: this checkout)")
+    ap.add_argument("--out", default=None, help="also write the records "
+                    "here, one JSON line per tree")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        print(json.dumps(measure()), flush=True)
+        return 0
+    here = Path(__file__).resolve()
+    lines, failed = [], []
+    for tree in args.tree or [str(here.parent.parent)]:
+        root = Path(tree).resolve()
+        # the package of `root` comes first on the worker's path
+        code = (f"import runpy, sys; sys.path.insert(0, {str(root)!r}); "
+                f"sys.argv = [{str(here)!r}, '--worker']; "
+                f"runpy.run_path({str(here)!r}, run_name='__main__')")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stdout + proc.stderr[-4000:])
+            failed.append(str(tree))
+            continue
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec["tree"] = str(tree)
+        lines.append(json.dumps(rec))
+        print(lines[-1], flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text("\n".join(lines) + "\n")
+    if failed:
+        print(f"race_kernel_times: failed: {failed}", file=sys.stderr)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,8 +10,10 @@ Both sides round every + - * / and sqrt alike (kernels built with
 -fmad=false), so the outputs are expected equal; the stated tolerance
 (atol 1e-4 on S, 1e-3 on OBS/REW) leaves room for the last bit of a
 libm sinf/cosf; the policy's ACT/VAL/LOGP (built from tanhf/expf) take
-atol 1e-5. race_rollout and race_step run the same device function, so
-K5 and K launches of K4 are held equal bit for bit.
+atol 1e-5. K4 with the policy is held equal to its plain version bit for
+bit (the MLP sums in the plain version's order under -fmad=false), and
+race_rollout and race_step run the same device functions, so K5 and K
+launches of K4 are held equal bit for bit.
 """
 
 import pytest
@@ -100,17 +102,31 @@ def test_wrappers_validate_inputs(dev):
 
 
 def _policy(env, hidden=(64, 64)):
-    net = ActorCritic(env.obs_size, 4, hidden,
-                      generator=torch.Generator().manual_seed(3))
+    """A random ActorCritic's pack, with random biases (the init zeroes
+    them) so that every tensor of the pack is read at its offset."""
+    gen = torch.Generator().manual_seed(3)
+    net = ActorCritic(env.obs_size, 4, hidden, generator=gen)
     with torch.no_grad():
         net.log_std.fill_(-1.0)
+        for name, p in net.named_parameters():
+            if name.endswith("bias"):
+                p.uniform_(-0.1, 0.1, generator=gen)
     return pack_policy_params(net.to(env.device))
 
 
-@pytest.mark.parametrize("cfg,n_drones,hidden", [
-    ("getting_started", 1, (64, 64)), ("twogates", 2, (64, 64)),
-    ("level1", 1, (256, 128))])
+# the in-kernel policy's widths: the trainer's, a wide pair (float4 weight
+# rows and dynamic shared memory above 48 KB) and an odd pair (masked
+# output chunks, unaligned rows)
+POLICY_CASES = [(cfg, n, hidden)
+                for cfg, n in (("getting_started", 1), ("twogates", 2))
+                for hidden in ((64, 64), (256, 128), (37, 5))]
+
+
+@pytest.mark.parametrize("cfg,n_drones,hidden",
+                         POLICY_CASES + [("level1", 1, (256, 128))])
 def test_policy_option_matches_plain(dev, cfg, n_drones, hidden):
+    """K4 with the policy equals its plain version to the bit, every
+    output, over six consecutive steps."""
     env = eval_race.make_eval_env(cfg, 256, dev, seed=4, n_drones=n_drones)
     pack = _policy(env, hidden)
     st = env.reset()
@@ -128,35 +144,34 @@ def test_policy_option_matches_plain(dev, cfg, n_drones, hidden):
         got = race_step.race_step_fused(*args, **kw)
         ref = race_step.race_step_fused_plain(*args, **kw)
         torch.cuda.synchronize()
-        for j in (9, 10, 11):                       # ACT, LOGP, VAL
-            torch.testing.assert_close(got[j], ref[j], atol=1e-5, rtol=0)
-        torch.testing.assert_close(got[0], ref[0], atol=1e-4, rtol=1e-6)
-        for j in (5, 6):
-            torch.testing.assert_close(got[j], ref[j], atol=1e-3, rtol=0)
-        for j in (1, 2, 3, 4, 7, 8):
-            torch.testing.assert_close(got[j], ref[j], atol=1e-4, rtol=0)
+        assert len(got) == len(ref) == 12
+        for j, (g, r) in enumerate(zip(got, ref)):
+            assert torch.equal(g, r), j
         st, obs = RowRaceState(*ref[:5]), ref[5]
     assert race_step.race_step_fused.policy_launches == before + 6
 
 
-@pytest.mark.parametrize("mode", ["actions", "policy"])
-def test_rollout_kernel_equals_step_launches(dev, mode):
+@pytest.mark.parametrize("mode,cfg,n_drones,hidden", [
+    ("actions", "level2", 1, None)]
+    + [("policy",) + case for case in POLICY_CASES])
+def test_rollout_kernel_equals_step_launches(dev, mode, cfg, n_drones,
+                                             hidden):
     """One race_rollout launch of K=8 steps == 8 race_step launches, bit
-    for bit (level2: randomized draws and disturbances; policy mode:
-    two COMPETE drones)."""
+    for bit (level2: randomized draws and disturbances; policy mode: the
+    in-kernel policy's widths, 1 drone and 2 COMPETE drones)."""
     K = 8
-    cfg, n = ("level2", 1) if mode == "actions" else ("twogates", 2)
-    env = eval_race.make_eval_env(cfg, 256, dev, seed=6, n_drones=n)
+    env = eval_race.make_eval_env(cfg, 256, dev, seed=6, n_drones=n_drones)
     st = env.reset()
     obs = env.initial_obs_rows(st)
     gen = torch.Generator(device=dev).manual_seed(5)
     seq = torch.randn((K, 4, env.T, 128), generator=gen, device=dev)
-    pack = _policy(env) if mode == "policy" else None
+    pack = _policy(env, hidden) if mode == "policy" else None
     d = env.stacked_draws(K)
     kw = dict(n_ticks=env.n_ticks, dt=env.dt, spec_tail=env.spec_tail,
               telemetry=True)
     pol = ({} if pack is None else
-           dict(policy_pack=pack, obs_rows=obs, actn_seq=seq))
+           dict(policy_pack=pack, obs_rows=obs, actn_seq=seq,
+                policy_hidden=hidden))
     before = race_rollout.race_rollout.launches
     got = race_rollout.race_rollout(
         env.kf, env.km, env.arm, env.ground_z, st.S,
@@ -168,7 +183,8 @@ def test_rollout_kernel_equals_step_launches(dev, mode):
     for k in range(K):
         at = (lambda x: x[k if x.shape[0] > 1 else 0])
         pk = ({} if pack is None else
-              dict(policy_pack=pack, obs_rows=obs, actn=seq[k]))
+              dict(policy_pack=pack, obs_rows=obs, actn=seq[k],
+                   policy_hidden=hidden))
         o = race_step.race_step_fused(
             env.kf, env.km, env.arm, env.ground_z, st.S,
             None if pack is not None else seq[k].clamp(-1, 1), st.R, st.GG,
@@ -183,6 +199,29 @@ def test_rollout_kernel_equals_step_launches(dev, mode):
     order = [6, 7, 5, 8] + ([9, 10, 11] if pack is not None else [])
     for g, j in zip(got[5:], order):    # REW, DONE, OBS, INFO[, policy]
         assert torch.equal(g, torch.stack([o[j] for o in outs])), j
+
+
+@pytest.mark.parametrize("hidden", [(64, 64), (256, 256)])
+def test_policy_launch_geometry(dev, hidden):
+    """The policy launches a 512-thread block per 32-env tile with its
+    activations, and the pack where it fits, in dynamic shared memory
+    (above 48 KB at 8 drones, which the launch allows); without it, 128
+    threads per block and no shared memory; the MLP keeps no per-thread
+    activation stack."""
+    lay, _ = race_step.policy_layout(127, hidden)
+    h1, h2 = hidden
+    rows = (127 + 2 * (h1 + h2) + 5 + 3 * 8) * 32 * 4
+    # the weights, rows padded to 4 floats, where they fit
+    staged = (2 * (h1 * 128 + h2 * h1) + 5 * h2) * 4
+    smem = rows + staged if rows + staged <= 232448 else rows
+    assert (smem > rows) == (hidden == (64, 64))
+    for kernel in ("race_step", "race_rollout"):
+        g = race_step.launch_geometry(kernel, 8, 4, lay)
+        assert (g["blocks"], g["threads"], g["smem_bytes"]) == (
+            16, 512, smem)
+        assert g["local_bytes"] < 1024, g
+        g = race_step.launch_geometry(kernel, 2, 4)
+        assert (g["blocks"], g["threads"], g["smem_bytes"]) == (4, 128, 0)
 
 
 # ---- the hover kernels (K1, K2, K7, K8) and the op chains (K6) -------------
