@@ -60,12 +60,14 @@ PPO_TOL = 1e-5
 # H100 SXM data sheet: float32 outside the tensor cores, and HBM3
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# the device times PERF.md section 6 records for the earlier design, in
-# which one thread per env ran the whole MLP (H100 80GB HBM3, 700.00 W),
-# printed beside this run's
-EARLIER_MS = {"race_step_fused": 0.08233, "race_step_fused[policy]": 0.3079,
-              "race_rollout[policy]": 3.715, "race_rollout[actions, 1]": 1.167,
-              "race_rollout[actions, 2]": 2.292, "train rollout phase": 25.31}
+# the device times PERF.md section 6 records for the earlier design of
+# the race step, one thread per env running its drones' windows in turn
+# (the tile MLP's final tree, H100 80GB HBM3, 700.00 W: race_kernel_times
+# for K4 without the policy and K5 in action mode, chip_smoke.py for the
+# rest), printed beside this run's
+EARLIER_MS = {"race_step_fused": 0.0774, "race_step_fused[policy]": 0.06957,
+              "race_rollout[policy]": 0.9326, "race_rollout[actions, 1]": 1.191,
+              "race_rollout[actions, 2]": 2.299, "train rollout phase": 17.07}
 S_GROUPS = {
     "pos/quat/vel": [*range(0, 10), 24, 25, 26],
     "omega/rpy": [10, 11, 12, 21, 22, 23],
@@ -401,7 +403,8 @@ def launch_lines(race_step, kernel, env, hidden):
            if k.startswith(kernel + "_kernel")}
     text = "; ".join(
         f"{mode}: {g['blocks']} blocks x {g['threads']} threads, "
-        f"{g['smem_bytes']} B dynamic shared memory per block, "
+        f"{g['smem_bytes']} B dynamic and {g['static_smem_bytes']} B "
+        f"static shared memory per block, "
         f"{g['registers']} registers, {g['local_bytes']} B local per thread"
         for mode, g in geo.items()) + "; ptxas: " + "; ".join(
         f"{k} {v['registers']} registers, {v['stack']} B stack, "
@@ -459,14 +462,16 @@ def k_steps(race_step, env, st, d, K, A=None, pack=None, obs=None,
 
 def phase7(dev, gen, eval_race, race_step, n_envs):
     """race_step with its policy option against the plain version, bit for
-    bit: three consecutive steps of getting_started 1-drone and twogates
-    2-drone COMPETE at 64-64, one step of each at 256-128, each from the
-    same inputs; then the trainer's launch timed beside the earlier
-    design's time and the eager policy forward."""
+    bit: three consecutive steps of getting_started 1-drone and 2-drone
+    COMPETE and twogates 2-drone COMPETE at 64-64, one step of
+    getting_started 1 and twogates 2 at 256-128, each from the same
+    inputs; then the trainer's launch timed beside the earlier design's
+    time and the eager policy forward."""
     from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import RowRaceState
 
     res = {"max_abs_err": 0.0}
     for cfg, nd, hidden, n_cmp in (("getting_started", 1, (64, 64), 3),
+                                   ("getting_started", 2, (64, 64), 3),
                                    ("twogates", 2, (64, 64), 3),
                                    ("getting_started", 1, (256, 128), 1),
                                    ("twogates", 2, (256, 128), 1)):
@@ -499,7 +504,7 @@ def phase7(dev, gen, eval_race, race_step, n_envs):
                       f"OBS err {errs['OBS']:.3g})", flush=True)
                 out = ref
             st, obs = RowRaceState(*out[:5]), out[5]
-        if (cfg, hidden) == ("getting_started", (64, 64)):
+        if (cfg, nd, hidden) == ("getting_started", 1, (64, 64)):
             # the shape of the trainer's one-launch-per-step path
             kw_t = dict(kw, telemetry=False)
             inputs = args + (pack, obs, actn)
@@ -521,7 +526,7 @@ def phase7(dev, gen, eval_race, race_step, n_envs):
             print(f"[7] race_step with the policy, getting_started 1 drone, "
                   f"{n_envs} envs, 64-64: {res['ms']:.4g} ms on the device "
                   f"({res['queued_ms']:.4g} ms per launch queued back to "
-                  f"back; the per-thread MLP took "
+                  f"back; one thread per env in the env step: "
                   f"{EARLIER_MS['race_step_fused[policy]']} ms), plain "
                   f"{res['plain_ms']:.4g} ms, bound {res['bound_ms']:.4g} ms "
                   f"({res['bound_by']}: {res['ops']:.4g} ops, "
@@ -534,15 +539,18 @@ def phase7(dev, gen, eval_race, race_step, n_envs):
 
 
 def phase8(dev, gen, eval_race, race_step, race_rollout, n_envs):
-    """race_rollout against K race_step launches (bit for bit) in action
-    mode (K=3) and policy mode (K=16), and against its plain version
-    (K=3); times the trainer's K=16 policy launch."""
+    """race_rollout against K race_step launches in action mode (K=3) and
+    policy mode (K=16), and against its plain version (K=3), all bit for
+    bit, at getting_started 1 and 2 COMPETE drones (and level2's
+    disturbances in action mode); times the trainer's K=16 policy
+    launch."""
     from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import RowRaceState
 
     res = {"max_abs_err": 0.0}
     cases = [("getting_started", 1, 3, False),
              ("getting_started", 2, 3, False), ("level2", 1, 3, False),
-             ("getting_started", 1, 16, True)]
+             ("getting_started", 1, 16, True),
+             ("getting_started", 2, 16, True)]
     for cfg, nd, K, policy in cases:
         env = eval_race.make_eval_env(cfg, n_envs, dev, seed=9, n_drones=nd)
         st = env.reset()
@@ -575,15 +583,16 @@ def phase8(dev, gen, eval_race, race_step, race_rollout, n_envs):
                   f"{K} race_step launches")
         print(f"[8] {name}: equal to {K} race_step launches, bit for bit "
               f"({sorted(got)})", flush=True)
-        if cfg == "level2":
+        if not policy:
             plain = dict(zip(ROLL_OUT, race_rollout.race_rollout_plain(
                 *args, **pol, **kw)))
             errs = check_step(name + " vs plain", got, plain)
+            check(all(torch.equal(got[k], plain[k]) for k in got),
+                  f"{name}: not equal to the plain version bit for bit")
             res["max_abs_err"] = max(res["max_abs_err"], errs["max"])
-            print(f"[8] {name} vs its plain version: OBS err "
-                  f"{errs['OBS']:.3g}, REW err {errs['REW']:.3g}, max abs "
-                  f"err {errs['max']:.3g}", flush=True)
-        if policy:
+            print(f"[8] {name} vs its plain version: equal bit for bit "
+                  f"({sorted(got)})", flush=True)
+        else:
             # vs plain on the first 3 steps, then the trainer's launch
             k3 = dict(pol, actn_seq=seq[:3])
             d3 = type(d)(None, d.RST[:3], d.RSTG[:3], d.RSTO[:3])
@@ -597,9 +606,11 @@ def phase8(dev, gen, eval_race, race_step, race_rollout, n_envs):
             check(all(torch.equal(got3[k], plain3[k]) for k in got3),
                   f"{name} K=3: not equal to the plain version bit for bit")
             res["max_abs_err"] = max(res["max_abs_err"], errs["max"])
-            print(f"[8] race_rollout[policy, K=3] vs its plain version: "
-                  f"equal bit for bit ({sorted(got3)}; max abs err "
-                  f"{errs['max']:.3g})", flush=True)
+            print(f"[8] race_rollout[policy, {cfg} N={nd}, K=3] vs its "
+                  f"plain version: equal bit for bit ({sorted(got3)}; max "
+                  f"abs err {errs['max']:.3g})", flush=True)
+            if nd != 1:
+                continue
             kw_t = dict(kw, telemetry=False)
 
             def kern():
@@ -623,7 +634,7 @@ def phase8(dev, gen, eval_race, race_step, race_rollout, n_envs):
             print(f"[8] race_rollout[policy, getting_started 1 drone, "
                   f"{n_envs} envs, K={K}]: {res['ms']:.4g} ms on the device "
                   f"per launch ({res['queued_ms']:.4g} ms queued back to "
-                  f"back; the per-thread MLP took "
+                  f"back; one thread per env in the env step: "
                   f"{EARLIER_MS['race_rollout[policy]']} ms), plain "
                   f"{res['plain_ms']:.4g} ms, bound {res['bound_ms']:.4g} ms "
                   f"({res['bound_by']}: {res['ops']:.4g} ops, "
@@ -717,7 +728,8 @@ def phase10(dev, gpu, eval_race, kernels, plain, totals, n_envs=4096,
           f"last 5 {last:.5g}; ms per iteration (iterations 2-{iters}): "
           + ", ".join(f"{k} {v:.4g}" for k, v in phase_ms.items())
           + f"; {rate:.6g} env-steps/s on {gpu}; the rollout phase took "
-          f"{EARLIER_MS['train rollout phase']} ms with the per-thread MLP",
+          f"{EARLIER_MS['train rollout phase']} ms with one thread per env "
+          f"in the env step",
           flush=True)
     check(last > first, f"mean reward did not rise ({first} -> {last})")
     # the device's idle share over one traced iteration
@@ -825,6 +837,9 @@ def phase11(dev, gen, gpu, eval_race, race_step, race_rollout, n_envs=4096):
               f"{r['plain_ms']:.4g} ms; on {gpu} (earlier "
               f"{EARLIER_MS[f'race_rollout[actions, {nd}]']} ms on the "
               f"device)", flush=True)
+    text, out["launch"] = launch_lines(race_step, "race_rollout", env,
+                                       (64, 64))
+    print(f"[11] race_rollout launches at 2 drones: {text}", flush=True)
     return out
 
 
@@ -1492,13 +1507,17 @@ def main():
     results["race_window"] = k3
 
     # ---- 4. race_step kernel vs plain -----------------------------------------
+    # the last case is the evaluation's own env (phase 5): level1, 128 envs,
+    # 1 drone, its seed and so its disturbances, 4 tiles of 32 envs
     k4 = {"max_abs_err": 0.0}
-    for cfg, nd in (("getting_started", 2), ("level1", 1)):
-        env = eval_race.make_eval_env(cfg, n_envs, dev, seed=5, n_drones=nd)
+    for cfg, nd, n, seed in (("getting_started", 2, n_envs, 5),
+                             ("getting_started", 1, n_envs, 5),
+                             ("level1", 1, n_envs, 5), ("level1", 1, 128, 42)):
+        env = eval_race.make_eval_env(cfg, n, dev, seed=seed, n_drones=nd)
         env.telemetry = True
         st = env.reset()
         for i in range(13):
-            a = torch.rand((n_envs, nd, 4) if nd > 1 else (n_envs, 4),
+            a = torch.rand((n, nd, 4) if nd > 1 else (n, 4),
                            generator=gen, device=dev) * 2 - 1
             draws = env.step_draws()
             args_ = (env.kf, env.km, env.arm, env.ground_z, st.S,
@@ -1511,14 +1530,15 @@ def main():
             if i >= 10:  # compare 3 consecutive steps, from the same input
                 got = race_step.race_step_fused(*args_, **kw)
                 torch.cuda.synchronize()
-                name = f"race_step[{cfg} N={nd} step {i}]"
+                name = f"race_step[{cfg} {n} envs N={nd} step {i}]"
                 errs = check_step(name, dict(zip(STEP_OUT, got)),
                                   dict(zip(STEP_OUT, ref)))
+                check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                      f"{name}: not equal to the plain version bit for bit")
                 k4["max_abs_err"] = max(k4["max_abs_err"], errs["max"])
-                print(f"[4] {name}: S ok, R err {errs['R']:.3g}, OBS err "
-                      f"{errs['OBS']:.3g}, REW err {errs['REW']:.3g}, "
-                      f"DONE/INFO/GG equal ({int(ref[7].sum())} envs done)",
-                      flush=True)
+                print(f"[4] {name}: equal to the plain version bit for bit "
+                      f"(all {len(got)} outputs; {int(ref[7].sum())} envs "
+                      f"done)", flush=True)
             st = st._replace(S=ref[0], R=ref[1], GG=ref[2], OO=ref[3],
                              EP=ref[4])
 
@@ -1612,20 +1632,30 @@ def main():
                          n_prof)
     k4["ms"] = (prof["kernel_ms"] / prof["launches"] if prof["launches"]
                 else k4["loop_ms"])
-    print(f"[6] profile, {n_prof} kernel steps: wall {prof['wall_ms']:.4g} "
-          f"ms, {prof['launches']} race_step launches traced, "
-          f"{prof['kernel_ms']} ms on the device (device idle share "
-          f"{prof['idle_share']}): {k4['ms']:.4g} ms per launch (earlier "
-          f"{EARLIER_MS['race_step_fused']} ms)", flush=True)
     st = env.reset()
     k4_in = (st.S, rows[0], st.R, st.GG, st.OO, st.EP, draws.RST,
              draws.RSTG, draws.RSTO)
+    k4["queued_ms"] = device_ms(lambda: race_step.race_step_fused(
+        env.kf, env.km, env.arm, env.ground_z, *k4_in, **kw))
+    print(f"[6] profile, {n_prof} kernel steps: wall {prof['wall_ms']:.4g} "
+          f"ms, {prof['launches']} race_step launches traced, "
+          f"{prof['kernel_ms']} ms on the device (device idle share "
+          f"{prof['idle_share']}): {k4['ms']:.4g} ms per launch, "
+          f"{k4['queued_ms']:.4g} ms queued back to back (one thread per "
+          f"env, the drones' windows in turn: "
+          f"{EARLIER_MS['race_step_fused']} ms queued)", flush=True)
+    text, k4["launch"] = launch_lines(race_step, "race_step", env, (64, 64))
+    print(f"[6] race_step launches: {text}", flush=True)
 
     def k4_plain():
         return race_step.race_step_fused_plain(env.kf, env.km, env.arm,
                                                env.ground_z, *k4_in, **kw)
 
     k4.update(bound(k4_in, k4_plain(), count_ops(k4_plain)))
+    print(f"[6] race_step bound: {k4['bytes']} B moved = "
+          f"{k4['bytes'] / PEAK_BYTES * 1e3:.4g} ms, {k4['ops']} operations "
+          f"of the plain version = {k4['ops'] / PEAK_FLOPS * 1e3:.4g} ms: "
+          f"bound {k4['bound_ms']:.4g} ms ({k4['bound_by']})", flush=True)
     results["race_step_fused"] = k4
     scaling = {}
     for envs in (16384, 65536):

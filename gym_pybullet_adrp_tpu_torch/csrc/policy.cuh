@@ -38,8 +38,8 @@
 // serves 32 agents, and the dispatch of the loads, the address arithmetic
 // and the latency of the dependent sums on 16 warps per SM set the time:
 // about 0.022 ms a step on an H100 (PERF.md). The env step that follows
-// (race_step.cuh) runs on one warp of the block; its serial window chain
-// is the larger part of a step.
+// (race_step.cuh) spreads the tile's windows over N * LANES warps of the
+// block; their serial chain is the larger part of a step.
 #pragma once
 
 #include <stdint.h>
@@ -62,8 +62,11 @@ struct PolicyLayout {
   int b1, b2, b3, vb1, vb2, vb3, log_std;
 };
 
-// The largest dynamic shared memory a block may ask for on the H100.
-constexpr int MAX_SMEM = 232448;
+// The env step's static shared memory beside the policy's dynamic rows
+// (race_step.cuh, its tail exchange) stays within this reserve, and the
+// dynamic rows within the rest of the H100's 232,448 bytes per block.
+constexpr int STEP_STATIC_SMEM = 4096;
+constexpr int MAX_SMEM = 232448 - STEP_STATIC_SMEM;
 
 __host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
 
@@ -237,9 +240,9 @@ __device__ __forceinline__ void dense_pair(const Dense& A, const Dense& B) {
 // and of the outputs ACT (4, T, 128), LOGP and VAL (T, 128), which get
 // the UNCLIPPED action, its log-probability and the value. The clipped
 // action rows 0-2 go to s.act[(3 d + k) * TILE + l] for the env step
-// (race_step_env), which warp 0 runs next: lane l of warp 0 wrote them.
-// Every thread of the block calls this (it holds barriers); the caller
-// puts a barrier between the writes of OBS_IN and this call.
+// (race_step_tile), after its first barrier: lane l of warp 0 writes
+// them. Every thread of the block calls this (it holds barriers); the
+// caller puts a barrier between the writes of OBS_IN and this call.
 __device__ __forceinline__ void policy_tile(const float* OBS_IN,
                                             const float* pp,
                                             const PolicyLayout& L,
@@ -291,13 +294,13 @@ __device__ __forceinline__ void policy_tile(const float* OBS_IN,
   }
 }
 
-// Dynamic shared memory above the default 48 KB needs the kernel's
-// attribute raised first (up to 232,448 bytes on the H100: 151 KB at the
-// pack's limits, 8 COMPETE drones and 256-256). Cheap, host-side, and
-// only taken by widths above ~150-150.
+// Shared memory above the default 48 KB a block, static and dynamic
+// together, needs the kernel's attribute raised first (up to 232,448
+// bytes on the H100: 151 KB at the pack's limits, 8 COMPETE drones and
+// 256-256). Cheap, host-side, and only taken by widths above ~150-150.
 template <typename Kernel>
 inline int allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
+  if (bytes + STEP_STATIC_SMEM <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }

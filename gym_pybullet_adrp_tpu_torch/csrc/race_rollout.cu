@@ -7,18 +7,18 @@
 // an action sequence A_seq (K, 4, T, 128), or the policy inside the step
 // (policy.cuh) with the obs carried from each step to the next.
 //
-// Mapping: as K4 (race_step.cu), looping over the K steps, in two
-// instantiations. Action mode: one thread per env, 128 per block. Policy
-// mode: one block per 32-env tile, 512 threads; each step is (a) the
-// tile's MLP on all sixteen warps (policy_tile), then (b) the env step on
-// warp 0, lane = env. Each step is the device function race_step_env
-// (race_step.cuh), the body K4 runs, after the same policy phase, so K
-// launches of K4 and one of K5 give the same bits. Step k+1 reads the
-// state columns that the same thread wrote at step k (the blocks are
-// updated in place in S_out/R_out/GG_out/OO_out/EP_out), which needs no
-// synchronisation; in policy mode the whole block reads the obs that warp
-// 0 wrote into OBS[k-1], after a barrier. The COMPETE opponent channels
-// are the same thread's other drones.
+// Mapping: as K4 (race_step.cu), one block per 32-env tile, looping over
+// the K steps, in two instantiations. Action mode: N * 4 warps (at most
+// 8), a lane group of 4 per agent's window. Policy mode: 512 threads, one
+// lane per agent's window; each step is (a) the tile's MLP on
+// all sixteen warps (policy_tile), then (b) the env step. Each step is
+// the device function race_step_tile (race_step.cuh), the body K4 runs,
+// after the same policy phase, so K launches of K4 and one of K5 give the
+// same bits. The blocks are updated in place in S_out/R_out/GG_out/
+// OO_out/EP_out, and a step's columns are read at step k+1 by other
+// threads than wrote them (a drone's window unit, its tail thread): the
+// barrier that begins each step orders them; in policy mode a barrier
+// also precedes the MLP, which reads the obs written at step k-1.
 //
 // Per-step operands are offset by k; a reset-draw sequence of length 1
 // (deterministic configs: every step's reset rows are equal) has stride
@@ -28,10 +28,10 @@
 // its per-step HBM round trip; here the state columns stay in L1/L2
 // between steps (1.9 MB of S at 4096 envs x 2 drones against a 50 MB L2)
 // and the launch overhead of K-1 launches is saved. What remains is K4's
-// cost K times: the serial per-thread chain of the window, at one
-// latency-bound thread per env (4096 threads on 132 SMs). The MLP of
-// policy mode, spread over the tile's 512 threads, now costs less than
-// the window it feeds.
+// cost K times: the latency of the window's serial chain, one chain per
+// agent on a lane group (race_step.cuh says how the tile spreads them).
+// The MLP of policy mode, spread over the tile's 512 threads, costs less
+// than the window it feeds.
 
 #include "race_step.cuh"
 
@@ -50,22 +50,17 @@ struct RolloutArgs {
 };
 
 template <bool POLICY>
-__global__ void __launch_bounds__(POLICY ? POLICY_THREADS : STEP_THREADS)
+__global__ void __launch_bounds__(POLICY ? POLICY_THREADS : 32 * STEP_WARPS)
 race_rollout_kernel(const RolloutArgs r, const StepConsts c) {
   const long long E = (long long)c.Tb * LANE;
   const long long nc = E * c.N;
   const long long C = obs_channels(c);
-  const int lane = threadIdx.x % 32;
-  long long e;
+  const long long e0 = (long long)blockIdx.x * TILE;
   PolicySmem s{};
   if constexpr (POLICY) {
-    e = (long long)blockIdx.x * TILE + lane;
     extern __shared__ float smem[];
     s = policy_smem(smem, r.PP, c.pl, c.N);
     stage_pack(r.PP, c.pl, s);  // once for the K steps
-  } else {
-    e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= E) return;  // no barrier in action mode
   }
   for (int k = 0; k < r.K; ++k) {
     StepPtrs p;
@@ -98,11 +93,11 @@ race_rollout_kernel(const RolloutArgs r, const StepConsts c) {
       p.ACT = r.ACT + k * ACT_DIM * nc;
       p.LOGP = r.LOGP + k * nc;
       p.VAL = r.VAL + k * nc;
-      // step k-1's obs, written by warp 0, is read by every warp
+      // step k-1's obs, written by its tail threads, is read by every warp
       if (!first) __syncthreads();
       policy_tile(p.OBS_IN, p.PP, c.pl, p.ACTN, p.ACT, p.LOGP, p.VAL, c.N,
-                  E, e - lane, s);
-      if (threadIdx.x < 32 && e < E) race_step_env(p, c, e, s.act + lane);
+                  E, e0, s);
+      race_step_tile<LANES<POLICY>>(p, c, e0, s.act);
     } else {
       p.OBS_IN = nullptr;
       p.PP = nullptr;
@@ -110,7 +105,7 @@ race_rollout_kernel(const RolloutArgs r, const StepConsts c) {
       p.ACT = nullptr;
       p.LOGP = nullptr;
       p.VAL = nullptr;
-      race_step_env(p, c, e, nullptr);
+      race_step_tile<LANES<POLICY>>(p, c, e0, nullptr);
     }
   }
 }
@@ -137,12 +132,13 @@ extern "C" int adrp_race_rollout(const adrp::RolloutArgs* r,
   return (int)cudaGetLastError();
 }
 
-// out = [blocks, threads, dynamic shared bytes, registers, local bytes]
-// of a launch with (policy != 0) or without the policy.
+// out = [blocks, threads, dynamic shared bytes, registers, local bytes,
+// static shared bytes] of a launch with (policy != 0) or
+// without the policy.
 extern "C" int adrp_race_rollout_geometry(const adrp::StepConsts* c,
                                           int policy, long long* out) {
   const adrp::StepLaunch g = adrp::step_launch(*c, policy != 0);
-  return policy
-             ? adrp::launch_report(adrp::race_rollout_kernel<true>, g, out)
-             : adrp::launch_report(adrp::race_rollout_kernel<false>, g, out);
+  return policy ? adrp::launch_report(adrp::race_rollout_kernel<true>, g, out)
+                : adrp::launch_report(adrp::race_rollout_kernel<false>, g,
+                                      out);
 }

@@ -5,7 +5,8 @@
 // plain PyTorch version: ops/race_window.py.
 //
 // Mapping: one thread per agent (a column of the channel-major
-// (C, T, 128) blocks), 128 threads per block. Agents are independent in
+// (C, T, 128) blocks; window_loop's lane group of L = 1), 128 threads
+// per block. Agents are independent in
 // the window, so unlike the fused step (race_step.cu) no thread owns more
 // than one column. Thread `a` reads channel k at S[k * ncols + a]:
 // neighbouring threads read neighbouring floats, so every load and store
@@ -52,7 +53,8 @@ race_window_kernel(const float* __restrict__ S, const float* __restrict__ W,
 #pragma unroll
   for (int k = 0; k < 32; ++k) w.coeffs[k] = W[(20 + k) * ncols + a];
   w.mass = W[52 * ncols + a];
-  window_loop<true>(s, w, c, noise != nullptr ? noise + a : nullptr, ncols);
+  window_loop<true, 1>(s, w, c, noise != nullptr ? noise + a : nullptr,
+                       ncols, 0);
 #pragma unroll
   for (int k = 0; k < S_CH; ++k) out[k * ncols + a] = s[k];
 }

@@ -14,11 +14,30 @@
 // reciprocal on both sides (how XLA evaluates it), passed in from Python.
 //
 // What bounds it on the card: the 58 state channels plus ~60 temporaries
-// live in registers of one thread for the whole window (all state indices
-// are compile-time constants once the tick body is inlined), so the
-// window is register- and latency-bound: ~1,500 scalar flops per tick and
-// 232 bytes of state read and written once per launch. Spills of the
-// state to local memory are what to watch in `-Xptxas -v`.
+// live in registers for the whole window (all state indices are
+// compile-time constants once the tick body is inlined), so the window is
+// register- and latency-bound: ~1,500 scalar flops per tick and 232 bytes
+// of state read and written once per launch. Spills of the state to local
+// memory are what to watch in `-Xptxas -v`.
+//
+// Mapping: window_loop<COEFFS, L> runs one agent on a group of L
+// consecutive lanes of one warp (L = 1 or 4). Every lane of the group
+// holds the whole state and computes the serial chains (the quaternion
+// update, the control law's rotation chain) itself; the independent items
+// of a tick whose cost outweighs a shuffle are dealt out: the three Euler
+// angles (two cephes atan2 and an asin, one instruction stream with
+// per-lane operands, euler_item) and the four motors' PWM pipeline and
+// thrust-noise round trip. Item i is computed by rank i and sent to every
+// rank with __shfl_sync, so every value comes from the same operations in
+// the same order as with L = 1; with L = 1 the lane computes every item
+// with a compile-time index, which folds the dealt-out code to each
+// function's own operations. (L = 2, two rounds of items, measured
+// slower than both: PERF.md.) Items whose
+// operands would need a per-lane select chain (the biquads, the per-axis
+// integrals) or that cost less than the shuffle (the motor forces, the
+// per-axis velocity) stay redundant. The race_window kernel (K3) runs
+// L = 1, one thread per agent; K4 and K5 run L = 4 without the policy
+// and L = 1 with it (race_step.cuh says why).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -73,44 +92,61 @@ __device__ __forceinline__ float rsqrt_exact(float x) {
   return 1.0f / sqrtf(x);
 }
 
-// cephes atanf polynomial on |x| <= tan(pi/8)
-__device__ __forceinline__ float atan_core(float x) {
-  float z = x * x;
-  return ((((F(8.05374449538e-2) * z - F(1.38776856032e-1)) * z
-            + F(1.99777106478e-1)) * z - F(3.33329491539e-1)) * z) * x + x;
+// The cephes atan2f(y, x) (asin = false) or asinf(y) (asin = true) in one
+// instruction stream, so that lanes computing different angles of a tick
+// run together: both reduce to p = poly(z) * w + w, with atan's four
+// coefficients or asin's five, then a base, a sign and atan2's quadrant
+// shift. With `asin` known at compile time (L = 1) the selects fold and the
+// unused reduction is dead, leaving each function's own operations; with
+// it per lane, every operation the lane's function performs is performed
+// in the same order on the same operands, so the result is the same bits.
+__device__ __forceinline__ float euler_item(bool asin, float y, float x) {
+  // atan2's reduction
+  const float ax = fabsf(x) > F(1e-30) ? x : F(1e-30);
+  const float t = y / ax;
+  const float at = fabsf(t);
+  const bool big_t = at > F(2.414213562373095);
+  const bool mid = at > F(0.4142135623730950);
+  const float num = big_t ? -1.0f : (mid ? at - 1.0f : at);
+  const float den = big_t ? maxf(at, F(1e-30)) : (mid ? at + 1.0f : 1.0f);
+  const float xr = num / den;
+  // asin's
+  const float xs = clipf(y, -1.0f, 1.0f);
+  const float as = fabsf(xs);
+  const bool big_s = as > 0.5f;
+  const float zz = big_s ? 0.5f * (1.0f - as) : as * as;
+  const float sq = sqrtf(zz);
+  const float z = asin ? zz : xr * xr;
+  const float w = asin ? (big_s ? sq : as) : xr;
+  const float k1 = asin ? F(2.4181311049e-2) : F(8.05374449538e-2);
+  const float k2 = asin ? F(4.5470025998e-2) : -F(1.38776856032e-1);
+  const float k3 = asin ? F(7.4953002686e-2) : F(1.99777106478e-1);
+  const float k4 = asin ? F(1.6666752422e-1) : -F(3.33329491539e-1);
+  const float q1 = asin ? F(4.2163199048e-2) * z + k1 : k1;
+  const float p = ((((q1 * z + k2) * z + k3) * z + k4) * z) * w + w;
+  const float base_t = big_t ? F(PI_D / 2) : (mid ? F(PI_D / 4) : 0.0f);
+  float v = asin ? (big_s ? F(PI_D / 2) - 2.0f * p : p) : base_t + p;
+  v = (asin ? xs < 0.0f : t < 0.0f) ? -v : v;
+  const float shift = y >= 0.0f ? F(PI_D) : F(-PI_D);
+  return (!asin && x < 0.0f) ? v + shift : v;
 }
 
-__device__ __forceinline__ float atan_cephes(float x) {
-  float ax = fabsf(x);
-  bool big = ax > F(2.414213562373095);
-  bool mid = ax > F(0.4142135623730950);
-  float num = big ? -1.0f : (mid ? ax - 1.0f : ax);
-  float den = big ? maxf(ax, F(1e-30)) : (mid ? ax + 1.0f : 1.0f);
-  float xr = num / den;
-  float base = big ? F(PI_D / 2) : (mid ? F(PI_D / 4) : 0.0f);
-  float y = base + atan_core(xr);
-  return x < 0.0f ? -y : y;
-}
-
-__device__ __forceinline__ float atan2_cephes(float y, float x) {
-  float ax = fabsf(x) > F(1e-30) ? x : F(1e-30);
-  float base = atan_cephes(y / ax);
-  float shift = y >= 0.0f ? F(PI_D) : F(-PI_D);
-  return x < 0.0f ? base + shift : base;
-}
-
-__device__ __forceinline__ float asin_cephes(float x) {
-  x = clipf(x, -1.0f, 1.0f);
-  float a = fabsf(x);
-  bool big = a > 0.5f;
-  float zz = big ? 0.5f * (1.0f - a) : a * a;
-  float sq = sqrtf(zz);
-  float s = big ? sq : a;
-  float p = (((((F(4.2163199048e-2) * zz + F(2.4181311049e-2)) * zz
-                + F(4.5470025998e-2)) * zz + F(7.4953002686e-2)) * zz
-              + F(1.6666752422e-1)) * zz) * s + s;
-  float r = big ? F(PI_D / 2) - 2.0f * p : p;
-  return x < 0.0f ? -r : r;
+// out[i] = item(i) for the NI items of a tick: with L = 1 the lane
+// computes each item with its index known at compile time; with L >= NI,
+// rank i of the lane group computes item i (a rank past the last
+// recomputes item NI - 1) and sends it to every rank.
+template <int L, int NI, typename Item>
+__device__ __forceinline__ void split_items(int r, Item item,
+                                            float (&out)[NI]) {
+  if constexpr (L == 1) {
+#pragma unroll
+    for (int i = 0; i < NI; ++i) out[i] = item(i);
+  } else {
+    static_assert(NI <= L, "one item per rank");
+    const float v = item(r < NI ? r : NI - 1);
+#pragma unroll
+    for (int i = 0; i < NI; ++i) out[i] = __shfl_sync(0xffffffffu, v, i, L);
+  }
 }
 
 // (p, v, a) of one poly7 channel at normalized time s (Horner), as
@@ -137,13 +173,17 @@ __device__ __forceinline__ void poly_channel(const float* c, float s,
 // planner, desired yaw trig per tick); without it the desired yaw is
 // window-static (the fused step's FULLSTATE branch). `noise` points at
 // this agent's element of tick 0, channel 0 of a (n_ticks, 7, T, 128)
-// block whose channel stride is `ncols`, or is null.
-template <bool COEFFS>
+// block whose channel stride is `ncols`, or is null. L lanes of one warp
+// run the agent together, `r` being this lane's rank in its group; every
+// lane of the warp calls it (the shuffles take the full mask), and every
+// rank ends with the same state.
+template <bool COEFFS, int L>
 __device__ __forceinline__ void window_loop(float (&s)[S_CH],
                                             const WinStatics& w,
                                             const WindowConsts& c,
                                             const float* noise,
-                                            long long ncols) {
+                                            long long ncols, int r) {
+  static_assert(L == 1 || L == 4, "one lane per agent, or a group of 4");
   const float dt = c.dt, kf = c.kf, km = c.km, arm_s = c.arm_s;
   const float RAD2DEG = F(RAD2DEG_D), DEG2RAD = F(DEG2RAD_D);
   const float inv_mass = 1.0f / w.mass;
@@ -241,12 +281,15 @@ __device__ __forceinline__ void window_loop(float (&s)[S_CH],
 
     float sinr = 2.0f * (qw * qx + qy * qz);
     float cosr = 1.0f - 2.0f * (qx * qx + qy * qy);
-    float roll = atan2_cephes(sinr, cosr);
     float sinp = clipf(2.0f * (qw * qy - qz * qx), -1.0f, 1.0f);
-    float pitch = asin_cephes(sinp);
     float siny = 2.0f * (qw * qz + qx * qy);
     float cosy_r = 1.0f - 2.0f * (qy * qy + qz * qz);
-    float yaw = atan2_cephes(siny, cosy_r);
+    float ang[3];
+    split_items<L, 3>(r, [&](int k) {
+      return euler_item(k == 1, k == 0 ? sinr : (k == 1 ? sinp : siny),
+                        k == 0 ? cosr : (k == 1 ? 1.0f : cosy_r));
+    }, ang);
+    const float roll = ang[0], pitch = ang[1], yaw = ang[2];
     float cp2 = maxf(1.0f - sinp * sinp, F(1e-12));
     float inv_cp = rsqrt_exact(cp2);
     float cp = cp2 * inv_cp;
@@ -455,33 +498,37 @@ __device__ __forceinline__ void window_loop(float (&s)[S_CH],
         ctl_t + r2 - p2 + ctl_y,
         ctl_t + r2 + p2 - ctl_y,
     };
-    float rpms_out[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      float cl = clipf(mth[m], 0.0f, 65535.0f);
+    // motor m's PWM pipeline, then the thrust round trip of new_rpm[m]
+    // (the firmware's motor 3 - m); without noise the round trip is the
+    // identity and only the [3,2,1,0] motor reorder survives
+    auto pwm_rpm = [&](float mt) {
+      float cl = clipf(mt, 0.0f, 65535.0f);
       float pwm = minf((kq * cl + kl) * cl, 65535.0f);
       pwm = tumbled ? 0.0f : pwm;
       float cl2 = clipf(pwm, 20000.0f, 65535.0f);
-      rpms_out[m] = F(0.2685) * cl2 + F(4070.3);
-    }
+      return F(0.2685) * cl2 + F(4070.3);
+    };
+    auto round_trip = [&](float rr, int m) {
+      float thr = kf * rr * rr;
+      thr = thr + tn[(3 + m) * ncols];
+      float mp = (sqrtf(maxf(thr, 0.0f) * c.inv_kf) - F(4070.3))
+                 * F(1.0 / 0.2685);
+      mp = clipf(mp, 20000.0f, 65535.0f);
+      return F(0.2685) * mp + F(4070.3);
+    };
+    // item m: motor 3 - m's PWM (a select chain picks its operand where m
+    // is a lane's rank); the noise test is made once for all four items,
+    // as one per item cost K3 and the policy instantiation ~5% (PERF.md)
+    auto motor = [&](int m) {
+      return pwm_rpm(m == 0 ? mth[3] : m == 1 ? mth[2] : m == 2 ? mth[1]
+                                                            : mth[0]);
+    };
     float new_rpm[4];
-    if (noise == nullptr) {
-      // the thrust round trip is the identity without noise: only the
-      // [3,2,1,0] motor reorder survives
-#pragma unroll
-      for (int m = 0; m < 4; ++m) new_rpm[m] = rpms_out[3 - m];
-    } else {
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        float r = rpms_out[3 - m];
-        float thr = kf * r * r;
-        thr = thr + tn[(3 + m) * ncols];
-        float mp = (sqrtf(maxf(thr, 0.0f) * c.inv_kf) - F(4070.3))
-                   * F(1.0 / 0.2685);
-        mp = clipf(mp, 20000.0f, 65535.0f);
-        new_rpm[m] = F(0.2685) * mp + F(4070.3);
-      }
-    }
+    if (noise == nullptr)
+      split_items<L, 4>(r, motor, new_rpm);
+    else
+      split_items<L, 4>(r, [&](int m) { return round_trip(motor(m), m); },
+                        new_rpm);
 
     float new_last_att = (att_due && !tumbled) ? cur_time : s[55];
     float new_last_pos = (pos_due && !tumbled) ? cur_time : s[54];

@@ -111,11 +111,11 @@ def race_rollout(kf, km, arm, ground_z, S, A_seq, R, GG, OO, EP, RST_seq,
     """K fused env steps in one launch (see the module docstring).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
-    (csrc/race_rollout.cu, one thread per env looping over the K steps;
-    in policy mode a 512-thread block per 32-env tile runs each step's MLP
-    first, ``race_step.launch_geometry``) on the current stream, counting
-    the launch in
-    ``race_rollout.launches``. Any other device raises."""
+    (csrc/race_rollout.cu: a block per 32-env tile looping over the K
+    steps of K4's tile step; in policy mode 512 threads run each step's
+    MLP first, ``race_step.launch_geometry``) on the current stream,
+    counting the launch in ``race_rollout.launches``. Any other device
+    raises."""
     dev = S.device
     kw = dict(n_ticks=n_ticks, dt=dt, spec_tail=spec_tail,
               noise_rows_seq=noise_rows_seq, telemetry=telemetry,

@@ -738,17 +738,17 @@ def launch_geometry(kernel, N, Tb, layout=None):
     """How ``kernel`` ("race_step" or "race_rollout") launches for ``N``
     drones and ``Tb`` * 128 envs, with the policy of ``layout`` or
     without: {blocks, threads, smem_bytes (dynamic shared memory per
-    block), registers, local_bytes (stack per thread)}, as the library
-    itself computes and reports them."""
+    block), registers, local_bytes (stack per thread), static_smem_bytes
+    (per block)}, as the library itself computes and reports them."""
     consts = StepConsts(N=int(N), Tb=int(Tb))
     if layout is not None:
         consts.pl = layout
-    out = (ctypes.c_longlong * 5)()
+    out = (ctypes.c_longlong * 6)()
     fn = getattr(_build.library(kernel), f"adrp_{kernel}_geometry")
     launch_error(kernel, fn(ctypes.addressof(consts), int(layout is not None),
                             out))
     return dict(zip(("blocks", "threads", "smem_bytes", "registers",
-                     "local_bytes"), out))
+                     "local_bytes", "static_smem_bytes"), out))
 
 
 def race_step_fused(kf, km, arm, ground_z, S, A, R, GG, OO, EP, RST, RSTG,
@@ -762,9 +762,10 @@ def race_step_fused(kf, km, arm, ground_z, S, A, R, GG, OO, EP, RST, RSTG,
     ``policy_layout`` pack for ``policy_hidden``, with the previous obs
     ``obs_rows`` (C, T, 128) and draws ``actn`` (4, T, 128); ``A`` is then
     not read). CPU tensors take the plain version. CUDA tensors launch the
-    kernel (csrc/race_step.cu: one thread per env looping over its drones;
-    with the policy, a 512-thread block per 32-env tile runs the MLP
-    first, ``launch_geometry``) on the current stream, counting the launch in
+    kernel (csrc/race_step.cu: a block per 32-env tile, each agent's window
+    on a lane group, the drones side by side, then a thread per agent for
+    the tail; with the policy, 512 threads run the tile's MLP first,
+    ``launch_geometry``) on the current stream, counting the launch in
     ``race_step_fused.launches`` and, with the policy option, in
     ``race_step_fused.policy_launches``. Any other device raises."""
     dev = S.device

@@ -1,5 +1,6 @@
-"""Device times of the race kernels K4 and K5 at the race trainer's
-shapes on one card, for this checkout or others, in turns.
+"""Device times of the race kernels K3, K4 and K5 at the race trainer's
+and the evaluation's shapes on one card, for this checkout or others, in
+turns.
 
   python3 -m gym_pybullet_adrp_tpu_torch.race_kernel_times [--tree DIR]...
       [--out FILE]
@@ -10,13 +11,16 @@ found in DIR and building its kernels there, so a parent commit's package
 unpacked by ``git archive`` can be held against this one on the same card
 (list the trees as parent, change, change, parent). Each process prints
 one JSON line: the card's name and power limit, the ptxas report of the
-race step and rollout kernels (registers, stack frame, spills), and the
-device ms per launch (CUDA events around launches queued behind a spin
-kernel, so the host's enqueue is not timed) of
+race step and rollout kernels (registers, stack frame, spills), their
+launch geometry at getting_started 4096 x 2 COMPETE, and the device ms
+per launch (CUDA events around launches queued behind a spin kernel, so
+the host's enqueue is not timed) of
   K4 with the policy: getting_started 4096 envs x 1 drone, 64-64;
   K5 in policy mode: the same, K=16;
   K5 in action mode: getting_started 4096 x 1 and x 2 COMPETE, K=32;
-  K4 without the policy: getting_started 4096 x 2 COMPETE.
+  K4 without the policy: getting_started 4096 x 2 COMPETE and 4096 x 1,
+    and the evaluation's shape, level1 128 x 1 with its disturbances;
+  K3: level1 4096 x 2 with its disturbances.
 Needs a CUDA device and nvcc; imports no JAX.
 """
 
@@ -102,7 +106,9 @@ def measure():
     docstring)."""
     import torch
     from gym_pybullet_adrp_tpu_torch import eval_race
-    from gym_pybullet_adrp_tpu_torch.ops import _build, race_rollout, race_step
+    from gym_pybullet_adrp_tpu_torch.ops import (
+        _build, race_rollout, race_step, race_window,
+    )
 
     if not torch.cuda.is_available():
         raise SystemExit("race_kernel_times: no CUDA device")
@@ -153,10 +159,40 @@ def measure():
                 env.kf, env.km, env.arm, env.ground_z, st.S, A, st.R, st.GG,
                 st.OO, st.EP, ds.RST, ds.RSTG, ds.RSTO, emit_obs=False, **kw),
             n=5)
+        d = env.step_draws()
+        rec["ms"][f"k4_{nd}drone"] = device_ms(
+            lambda: race_step.race_step_fused(
+                env.kf, env.km, env.arm, env.ground_z, st.S, A[0], st.R,
+                st.GG, st.OO, st.EP, d.RST, d.RSTG, d.RSTO, noise_rows=None,
+                **kw))
+    rec["geometry"] = {
+        f"{k}[{mode}]": race_step.launch_geometry(
+            k, env.N, env.Tb,
+            race_step.policy_layout(env.obs_size)[0] if mode == "policy"
+            else None)
+        for k in ("race_step", "race_rollout")
+        for mode in ("policy", "actions")}
+
+    # the evaluation's step: level1, 128 envs, 1 drone, disturbances
+    env = eval_race.make_eval_env("level1", 128, dev, seed=7, n_drones=1)
+    st = env.reset()
     d = env.step_draws()
-    rec["ms"]["k4_2drone"] = device_ms(lambda: race_step.race_step_fused(
-        env.kf, env.km, env.arm, env.ground_z, st.S, A[0], st.R, st.GG,
-        st.OO, st.EP, d.RST, d.RSTG, d.RSTO, noise_rows=None, **kw))
+    a = torch.rand((128, 4), generator=gen, device=dev) * 2 - 1
+    A1 = env.action_rows(a)
+    rec["ms"]["k4_level1_128"] = device_ms(lambda: race_step.race_step_fused(
+        env.kf, env.km, env.arm, env.ground_z, st.S, A1, st.R, st.GG, st.OO,
+        st.EP, d.RST, d.RSTG, d.RSTO, noise_rows=d.noise_rows, **kw_of(env)))
+
+    # K3: level1, 4096 x 2 drones, the window statics of random actions
+    env = eval_race.make_eval_env("level1", N_ENVS, dev, seed=7, n_drones=2)
+    st = env.reset()
+    a = torch.rand((N_ENVS, 2, 4), generator=gen, device=dev) * 2 - 1
+    W = env.build_W(st, env.action_rows(a)).contiguous()
+    nz = env.step_draws().noise_rows
+    rec["ms"]["k3_level1_2drone"] = device_ms(
+        lambda: race_window.race_window(env.kf, env.km, env.arm,
+                                        env.ground_z, st.S, W, env.n_ticks,
+                                        env.dt, nz))
     return rec
 
 
