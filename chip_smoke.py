@@ -39,6 +39,12 @@ from pathlib import Path
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+# device times of launches queued behind a spin kernel (the host's enqueue
+# not timed), and the host's enqueue itself
+from gym_pybullet_adrp_tpu_torch.race_kernel_times import (
+    device_host_ms, device_ms,
+)
+
 REPO = Path(__file__).resolve().parent
 
 # tolerances of kernel vs plain version on the same card and inputs. Both
@@ -64,10 +70,15 @@ PEAK_BYTES = 3.35e12
 # the race step, one thread per env running its drones' windows in turn
 # (the tile MLP's final tree, H100 80GB HBM3, 700.00 W: race_kernel_times
 # for K4 without the policy and K5 in action mode, chip_smoke.py for the
-# rest), printed beside this run's
+# rest), and of the hover kernels at one thread per env (K1, K2 at 4096
+# and 65536 envs x 64 steps, K7, K8, and bench.py's headline loop per
+# launch; chip_smoke.py, same card and limit), printed beside this run's
 EARLIER_MS = {"race_step_fused": 0.0774, "race_step_fused[policy]": 0.06957,
               "race_rollout[policy]": 0.9326, "race_rollout[actions, 1]": 1.191,
-              "race_rollout[actions, 2]": 2.299, "train rollout phase": 17.07}
+              "race_rollout[actions, 2]": 2.299, "train rollout phase": 17.07,
+              "ctrl_step_packed": 0.00502, "hover_rollout": 0.0635,
+              "hover_rollout[65536]": 0.172, "hover_rollout_v2": 0.1294,
+              "hover_rollout_v3": 0.0635, "headline loop": 0.0781}
 S_GROUPS = {
     "pos/quat/vel": [*range(0, 10), 24, 25, 26],
     "omega/rpy": [10, 11, 12, 21, 22, 23],
@@ -247,32 +258,6 @@ def kernel_ms(fn, kernel, n=20):
     return ms / count if count else None
 
 
-def device_ms(fn, n=20, sleep_cycles=20_000_000):
-    """Device time per call of ``fn``: ``n`` calls queued behind a spin
-    kernel (``torch.cuda._sleep``), so that the host has queued every
-    launch before the card reaches the first and the events time the
-    launches back to back, without the host's gaps. The spin is doubled
-    until it outlasts the host's queueing (at most 4 times)."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(4):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
-        torch.cuda._sleep(sleep_cycles)
-        ev[1].record()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        ev[2].record()
-        torch.cuda.synchronize()
-        if host_ms < ev[0].elapsed_time(ev[1]):
-            return ev[1].elapsed_time(ev[2]) / n
-        sleep_cycles *= 2
-    raise PhaseError(f"device_ms: the host queued {n} calls in {host_ms} ms, "
-                     "longer than the spin")
-
-
 def profile_steps(env, rows, draws, kw, step_fn, n=64):
     """Host wall time, the kernel's traced launches and their device time,
     and the device's idle share over ``n`` steps ("not measured" when the
@@ -411,6 +396,33 @@ def launch_lines(race_step, kernel, env, hidden):
         f"{v['spill_stores']}/{v['spill_loads']} B spill stores/loads"
         for k, v in ptx.items())
     return text, {"geometry": geo, "ptxas": ptx}
+
+
+def hover_launch_line(hs, kernel, B, flags=""):
+    """How the hover ``kernel`` ("hover_rollout" or "hover_step") launches
+    for ``B`` envs: its lanes per env (the rollout's ``lane_count``; one
+    for the step kernel), threads per block, and ptxas' registers, stack
+    and spills of that instantiation (``flags``: the rollout's "1,0"
+    small-angle, "0,1" exact, "0,0" exact with e2 < 1e-8); returns (text,
+    dict)."""
+    from gym_pybullet_adrp_tpu_torch.hover_kernel_times import HOVER_KERNELS
+    from gym_pybullet_adrp_tpu_torch.ops import _build
+    from gym_pybullet_adrp_tpu_torch.race_kernel_times import ptxas_entries
+
+    if kernel == "hover_rollout":
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        L = hs.lane_count(B, n_sm)
+        name = f"{kernel}_kernel<{flags},{L}>"
+    else:
+        L, name = 1, f"{kernel}_kernel"
+    ptx = ptxas_entries(_build.build_info["ptxas"], HOVER_KERNELS).get(name)
+    check(ptx is not None, f"{name}: not in the ptxas report")
+    info = {"lanes": L, "threads": hs.THREADS, "blocks": B * L // hs.THREADS,
+            **ptx}
+    return (f"{name}: L = {L} lanes per env, {info['blocks']} blocks x "
+            f"{hs.THREADS} threads, {ptx['registers']} registers, "
+            f"{ptx['stack']} B stack, {ptx['spill_stores']}/"
+            f"{ptx['spill_loads']} B spill stores/loads"), info
 
 
 def eager_policy_ms(env, hidden, gen):
@@ -904,6 +916,7 @@ def phase12(dev, gen, gpu, kernels, plain, totals, n_envs=4096, steps=256):
     ref = hs.ctrl_step_packed_plain(P, packed, rpm, 8, 1 / 240)
     torch.cuda.synchronize()
     errs = hover_errs("ctrl_step_packed", got, ref)
+    check(torch.equal(got, ref), "ctrl_step_packed: not bit for bit")
     per_ch = [float(x) for x in (got - ref).abs().amax(dim=(1, 2))]
     check(bool((got[2, 0] == 0.0125).all()), "ground contact height")
     res = {"max_abs_err": errs["max"], "per_channel_err": per_ch}
@@ -918,15 +931,19 @@ def phase12(dev, gen, gpu, kernels, plain, totals, n_envs=4096, steps=256):
                                          consts=c)
 
     res["loop_ms"] = cuda_ms(kern, 50)
-    res["ms"] = device_ms(kern, 50)
+    res["ms"], res["enqueue_ms"] = device_host_ms(kern, 50)
     res["plain_ms"] = cuda_ms(plain_fn, 5)
     res.update(bound((packed, rpm), (got,), count_ops(plain_fn)))
+    text, res["launch"] = hover_launch_line(hs, "hover_step", n_envs)
     print(f"[12] ctrl_step_packed vs plain, {n_envs} envs (128 in ground "
-          f"contact): max abs err per channel {per_ch} (tol {HOVER_TOL}); "
-          f"{res['ms']:.4g} ms on the device, {res['loop_ms']:.4g} ms per "
-          f"launch in a host loop, plain {res['plain_ms']:.4g} ms, bound "
+          f"contact): max abs err per channel {per_ch} (tol {HOVER_TOL}), "
+          f"bit for bit: {torch.equal(got, ref)}; "
+          f"{res['ms']:.4g} ms on the device (one thread per env: "
+          f"{EARLIER_MS['ctrl_step_packed']} ms), {res['loop_ms']:.4g} ms "
+          f"per launch in a host loop, enqueue {res['enqueue_ms']:.4g} ms "
+          f"per call, plain {res['plain_ms']:.4g} ms, bound "
           f"{res['bound_ms']:.4g} ms ({res['bound_by']}: {res['ops']:.4g} "
-          f"ops, {res['bytes']:.4g} B)", flush=True)
+          f"ops, {res['bytes']:.4g} B); {text}", flush=True)
 
     # bench.py --impl pallas: 4096 envs, 256 steps, actions in +-0.05 drawn
     # on the card every step, the reward summed
@@ -1002,6 +1019,7 @@ def phase13(dev, gen, gpu, kernels, plain, totals, n_envs=4096,
             errs = hover_errs(name, got[0], ref[0], got[1], ref[1])
             check(torch.equal(got[2], ref[2]), f"{name}: resets differ")
             bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+            check(bitwise, f"{name}: not bit for bit")
             if mode == "injected":
                 res["max_abs_err"] = max(res["max_abs_err"], errs["max"])
             print(f"[13] {name} vs plain, {n_envs} envs x {n_steps} steps: "
@@ -1070,16 +1088,23 @@ def phase13(dev, gen, gpu, kernels, plain, totals, n_envs=4096,
 
     la, rate, loop_ms, total = timed(hs.hover_rollout, "hover_rollout")
     check(la["hover_rollout"] == launches, f"headline launches {dict(la)}")
-    dev_ms = device_ms(lambda: hs.hover_rollout(P, st0, 3, n_steps,
-                                                consts=c))
+    dev_ms, enq_ms = device_host_ms(
+        lambda: hs.hover_rollout(P, st0, 3, n_steps, consts=c), n=50)
     res.update(env_steps_per_sec=rate, loop_ms=loop_ms, ms=dev_ms,
-               headline_reward=total)
+               enqueue_ms=enq_ms, headline_reward=total)
     print(f"[13] bench headline (bench.py --impl pallas-rollout): "
           f"{n_envs} envs, {launches} hover_rollout launches x {n_steps} "
           f"steps, seeds 7+i: {rate:.6g} env-steps/s, {loop_ms:.4g} ms per "
-          f"launch in the loop, {dev_ms:.4g} ms per launch on the device "
-          f"(launches back to back); reward sum {total:.6g}; on {gpu}",
-          flush=True)
+          f"launch in the loop (one thread per env: "
+          f"{EARLIER_MS['headline loop']} ms), {dev_ms:.4g} ms per launch "
+          f"on the device (launches back to back; one thread per env: "
+          f"{EARLIER_MS['hover_rollout']} ms), enqueue {enq_ms:.4g} ms per "
+          f"hover_rollout call (host clock while the calls queue); reward "
+          f"sum {total:.6g}; on {gpu}", flush=True)
+    for B, flags in ((n_envs, "1,0"), (n_envs, "0,1"), (65536, "1,0")):
+        text, res[f"launch_{B}_{flags}"] = hover_launch_line(
+            hs, "hover_rollout", B, flags)
+        print(f"[13] {text}", flush=True)
     # the batch that fills the card: 65536 envs
     big = fast_hover.reset_packed([0.0, 0.0, 0.1125], 65536,
                                   device=dev).packed
@@ -1089,7 +1114,8 @@ def phase13(dev, gen, gpu, kernels, plain, totals, n_envs=4096,
     print(f"[13] hover_rollout per launch of {n_steps} steps on the device "
           f"({hs.THREADS}-thread blocks): {n_envs} envs {dev_ms:.4g} ms, 65536 "
           f"envs {res['ms_65536']:.4g} ms "
-          f"({res['env_steps_per_sec_65536']:.6g} env-steps/s)", flush=True)
+          f"({res['env_steps_per_sec_65536']:.6g} env-steps/s; one thread "
+          f"per env: {EARLIER_MS['hover_rollout[65536]']} ms)", flush=True)
     del big
 
     def plain_fn():
@@ -1149,6 +1175,7 @@ def phase14(dev, gen, gpu, kernels, plain, totals, n_envs=4096,
         if len(got) > 2:
             check(torch.equal(got[2], ref[2]), f"{label}: resets differ")
         bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+        check(bitwise, f"{label}: not bit for bit")
         print(f"[14] {label} vs plain, {n_envs} envs x {n_steps} steps: "
               f"state err {errs['pos/quat/vel']:.3g} / omega "
               f"{errs['omega']:.3g}, acc err {errs['acc']:.3g}; bit for "
@@ -1233,11 +1260,15 @@ def phase14(dev, gen, gpu, kernels, plain, totals, n_envs=4096,
         step_ops = count_ops(lambda pfn=pfn: pfn(
             P, st0, 0, 2, actions=acts[:2], consts=c))
         r.update(bound((st0,), (st0, st0[0]), step_ops * n_steps // 2))
+        text, r["launch"] = hover_launch_line(
+            hs, "hover_rollout", n_envs,
+            "0,0" if name.endswith("v2") else "1,0")
         out[name] = r
         print(f"[14] {name}, {n_envs} envs, {launches} launches x "
               f"{n_steps} steps: {r['env_steps_per_sec']:.6g} env-steps/s, "
               f"{r['loop_ms']:.4g} ms per launch in the loop, "
-              f"{r['ms']:.4g} ms on the device, plain "
+              f"{r['ms']:.4g} ms on the device (one thread per env: "
+              f"{EARLIER_MS[name]} ms); {text}; plain "
               f"{r['plain_ms']:.4g} ms, bound {r['bound_ms']:.4g} ms "
               f"({r['bound_by']}); max abs err vs plain "
               f"{r['max_abs_err']:.3g}; on {gpu}", flush=True)

@@ -7,14 +7,17 @@
 // Mapping: one thread per env, a column of the channel-major (13, T, 128)
 // state: thread e reads channel k at st[k * B + e], so neighbouring
 // threads read neighbouring floats and every load and store is coalesced.
-// The 13 channels stay in registers over the n_substeps substeps.
+// The 13 channels stay in registers over the n_substeps substeps, in a
+// loop kept rolled (hover_step.cuh). A group of 4 lanes per env, what
+// the rollout kernel runs at 4096 envs, measured no faster here on an
+// H100: one step leaves nothing state-free to share but one motor
+// (PERF.md, section 6).
 //
 // Bound: per env the kernel reads 17 floats and writes 13 (120 B); the
-// work is 8 substeps of ~110 dependent float ops with a sqrtf, sinf,
+// work is 8 substeps of ~120 dependent float ops with a sqrtf, sinf,
 // cosf and a division each, so the launch is bound by operations and by
-// latency (one dependent chain per thread), not by bytes. At 4096 envs
-// there are 128 warps in all; the block size (THREADS in
-// ops/hover_step.py) is the one chip_smoke.py measured fastest for K2.
+// latency (one dependent chain per thread), not by bytes; at 4096 envs
+// most of its ~4 us is the launch itself.
 
 #include "hover_step.cuh"
 
@@ -33,21 +36,35 @@ __global__ void hover_step_kernel(const float* __restrict__ st,
 #pragma unroll
   for (int k = 0; k < HOVER_ACT; ++k) r[k] = rpm[k * B + e];
   const Motor m = motor(r, c);
+#pragma unroll SUBSTEP_UNROLL<false>
   for (int i = 0; i < c.n_substeps; ++i) substep<false>(s, m, c);
 #pragma unroll
   for (int k = 0; k < HOVER_CH; ++k) out[k * B + e] = s[k];
 }
 
+// The arguments of adrp_hover_step in one buffer, packed by the wrapper
+// (ops/hover_step.py, _STEP_ARGS), as for the rollout kernel.
+struct StepArgs {
+  const float* st;
+  const float* rpm;
+  float* out;
+  const HoverConsts* c;
+  void* stream;
+  long long B;
+  int threads;
+};
+static_assert(sizeof(StepArgs) == 56, "StepArgs: 5 pointers, B, 1 int");
+
 }  // namespace adrp
 
 // C interface (bound with ctypes in ops/_build.py). The caller makes the
 // stream's device current. Returns the cudaError_t of the launch.
-extern "C" int adrp_hover_step(const float* st, const float* rpm, float* out,
-                               long long B, const adrp::HoverConsts* c,
-                               int threads, void* stream) {
-  if (B <= 0) return 0;
-  const long long blocks = (B + threads - 1) / threads;
-  adrp::hover_step_kernel<<<(unsigned)blocks, threads, 0,
-                            (cudaStream_t)stream>>>(st, rpm, out, B, *c);
+extern "C" int adrp_hover_step(const adrp::StepArgs* a) {
+  if (a->B <= 0) return 0;
+  if (a->threads <= 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = (a->B + a->threads - 1) / a->threads;
+  adrp::hover_step_kernel<<<(unsigned)blocks, a->threads, 0,
+                            (cudaStream_t)a->stream>>>(a->st, a->rpm, a->out,
+                                                       a->B, *a->c);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,19 @@
 // _rollout_kernel :202). Every constant arrives folded on the host
 // (HoverConsts); built with -fmad=false and without fast math, each
 // + - * / sqrt rounds as PyTorch's elementwise ops round it.
-
+//
+// Lane groups (K2): an env's substep is one serial chain (q -> R -> R w ->
+// theta^2 -> q', ~20 dependent float ops) whose pieces differ per axis
+// (a diagonal entry of R is 1 - 2 (a a + b b), an off-diagonal one
+// 2 (a b +- c d); q' has a cross-product form for x, y, z and a dot
+// product for w). Lanes of a warp run one instruction stream, so a piece
+// dealt out by axis costs the selects of its per-lane operands and a
+// shuffle on the chain: every rank of a group computes the whole
+// substep, and the group's lanes share only what does not depend on the
+// state (the per-step motor terms, hover_rollout.cu). Dealing out q'
+// over four ranks, or sinf and cosf over two, measured slower on an H100
+// (PERF.md, section 6). The ground contact is a select, not a branch: the
+// branch and its reconvergence cost the small-angle rollout 10-14%.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,6 +31,12 @@ namespace adrp {
 constexpr int HOVER_LANE = 128;
 constexpr int HOVER_CH = 13;   // pos xyz, quat xyzw, vel xyz, omega(body) xyz
 constexpr int HOVER_ACT = 4;
+
+// substeps per iteration of the substep loop: two on the small-angle path
+// (the next substep's rotation overlaps this one's translation), one on
+// the exact path, whose longer body unrolled ran slower (PERF.md, section 6)
+template <bool SMALL>
+constexpr int SUBSTEP_UNROLL = SMALL ? 2 : 1;
 
 // Mirrors ops/hover_step.py::HoverConsts field for field.
 struct HoverConsts {
@@ -133,15 +151,14 @@ __device__ __forceinline__ void substep(float s[HOVER_CH], const Motor& m,
   }
 
   // analytic ground contact (dynamics.pyb_substep)
-  if (pz < c.ground_z) {
-    pz = c.ground_z;
-    vx = 0.0f;
-    vy = 0.0f;
-    vz = fmaxf(vz, 0.0f);
-    wx = 0.0f;
-    wy = 0.0f;
-    wz = 0.0f;
-  }
+  const bool below = pz < c.ground_z;
+  pz = below ? c.ground_z : pz;
+  vx = below ? 0.0f : vx;
+  vy = below ? 0.0f : vy;
+  vz = below ? fmaxf(vz, 0.0f) : vz;
+  wx = below ? 0.0f : wx;
+  wy = below ? 0.0f : wy;
+  wz = below ? 0.0f : wz;
 
   s[0] = px; s[1] = py; s[2] = pz;
   s[3] = qx; s[4] = qy; s[5] = qz; s[6] = qw;

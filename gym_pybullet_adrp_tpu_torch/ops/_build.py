@@ -133,10 +133,9 @@ def library(name):
             "race_window": ("adrp_race_window", [vp, vp, vp, vp, ll, vp, vp]),
             "race_step": ("adrp_race_step", [vp, vp, vp]),
             "race_rollout": ("adrp_race_rollout", [vp, vp, vp]),
-            "hover_step": ("adrp_hover_step", [vp, vp, vp, ll, vp, i, vp]),
-            "hover_rollout": ("adrp_hover_rollout",
-                              [vp, vp, vp, vp, vp, ll, i, ctypes.c_uint, i,
-                               i, vp, i, vp]),
+            # one packed buffer of arguments (ops/hover_step.py)
+            "hover_step": ("adrp_hover_step", [ctypes.c_char_p]),
+            "hover_rollout": ("adrp_hover_rollout", [ctypes.c_char_p]),
             "op_chain": ("adrp_op_chain", [i, vp, vp, ll, i, vp]),
         }
         libs = {}

@@ -10,7 +10,8 @@ contact), float32.
 Layout: the JAX package's channel-major ``(13, T, 128)`` block, rows
 [pos xyz, quat xyzw, vel xyz, omega(body) xyz], so the tests compare like
 with like. The kernels (csrc/hover_step.cu, csrc/hover_rollout.cu) run
-one thread per env and index the block as ``channel * B + env``.
+an env on one thread (K1) or on a group of L lanes (K2, ``lane_count``)
+and index the block as ``channel * B + env``.
 
 * ``ctrl_step_packed`` (K1): rpm constant over ``n_substeps`` PYB
   substeps with the exact axis-angle quaternion update.
@@ -32,10 +33,12 @@ and plain version round every operation alike.
 Folding reads the params back from their device, a copy that waits for
 the card. A loop of launches folds them once with ``hover_consts`` and
 passes the result as ``consts`` (``fast_hover.make_step`` does); the
-other settings are then read from it.
+other settings are then read from it. The folded constants carry their
+ctypes struct, so a launch neither reads the params nor fills a struct.
 """
 
 import ctypes
+import struct
 
 import numpy as np
 import torch
@@ -48,10 +51,19 @@ from ..utils.enums import DroneModel, Physics
 LANE = 128
 N_CHANNELS = 13
 ACT_CHANNELS = 4
-# threads per block. At 4096 envs every block size gives 128 warps, one
-# per SM sub-partition in use; 32-, 64- and 128-thread blocks gave K2 the
-# same device time on an H100 (PERF.md, findings of the hover slice)
+# threads per block. 32-, 64- and 128-thread blocks gave K2 at one lane
+# per env the same device time on an H100 (PERF.md, section 6)
 THREADS = 128
+# lane counts the rollout kernel is built for (csrc/hover_rollout.cu)
+ROLLOUT_LANES = (1, 4)
+# the C entry points' arguments, packed into one buffer: ``struct
+# RolloutArgs`` of csrc/hover_rollout.cu (st, actions, out, acc, resets,
+# consts, stream; B; n_steps, seed, smallangle, near_sqrt, lanes,
+# threads) and ``struct StepArgs`` of csrc/hover_step.cu (st, rpm, out,
+# consts, stream; B; threads). A ctypes call then converts one pointer,
+# not 14 or 7 values.
+_ROLLOUT_ARGS = struct.Struct("=7QqiIiiii")
+_STEP_ARGS = struct.Struct("=5Qqi4x")
 
 # tilt limits of the trig-free truncation test (pallas_step.py:331-332)
 TAN04 = 0.4227932
@@ -81,7 +93,8 @@ def hover_consts(params, n_substeps=8, dt=1.0 / 240.0, act_scale=0.05,
     """The Python-float constants of the hover kernels, computed from the
     float32 params as pallas_step.py computes them (:158-167, :396-406)
     and folded as its kernels fold them. Reads every leaf back to the
-    host: fold once per loop, not per launch."""
+    host: fold once per loop, not per launch. Returns a read-only dict
+    that carries its ctypes struct (``FoldedConsts``)."""
     def f32(x):
         return np.asarray(x.detach().cpu() if torch.is_tensor(x) else x,
                           dtype=np.float32)
@@ -96,7 +109,7 @@ def hover_consts(params, n_substeps=8, dt=1.0 / 240.0, act_scale=0.05,
                      - f32(params.collision_z_offset))
     dt = float(dt)
     half_dt = dt * 0.5
-    return dict(
+    return FoldedConsts(dict(
         n_substeps=int(n_substeps), max_ep_steps=int(max_ep_steps),
         dt=dt, kf=kf, km=km, arm_s=arm_s,
         inv_m_dt=dt / mass, g_dt=dt * gravity / mass,
@@ -109,14 +122,53 @@ def hover_consts(params, n_substeps=8, dt=1.0 / 240.0, act_scale=0.05,
         ps1=-1.0 / 6.0, ps2=1.0 / 120.0,
         pc1=-0.5, pc2=1.0 / 24.0, pc3=-1.0 / 720.0,
         tan04=TAN04, sin04=SIN04,
-    )
+    ))
 
 
-def consts_struct(c) -> HoverConsts:
+class FoldedConsts(dict):
+    """``hover_consts``' dict of constants with its ctypes struct
+    (``struct``), filled once from the same values. Read-only, so the two
+    cannot part."""
+
+    def __init__(self, values):
+        super().__init__(values)
+        self.struct = _fill_struct(self)
+
+    def _read_only(self, *args, **kwargs):
+        raise TypeError("folded hover constants are read-only")
+
+    __setitem__ = __delitem__ = update = pop = popitem = clear = \
+        setdefault = _read_only
+
+
+def _fill_struct(c) -> HoverConsts:
     out = HoverConsts()
     for name, _ in HoverConsts._fields_:
         setattr(out, name, c[name])
     return out
+
+
+def consts_struct(c) -> HoverConsts:
+    """The ctypes struct of the constants ``c``: the one folded with them
+    by ``hover_consts``, or a new one for any other dict."""
+    return c.struct if isinstance(c, FoldedConsts) else _fill_struct(c)
+
+
+def lane_count(B: int, n_sm: int = 132) -> int:
+    """Lanes per env, L, for a rollout of ``B`` envs on a card of ``n_sm``
+    SMs (four sub-partitions, one warp scheduler each). One warp that has
+    its sub-partition to itself waits on its envs' dependent chains, and
+    the substep cannot be dealt out over lanes (csrc/hover_step.cuh): the
+    L ranks of a group repeat it, share the per-step motor terms, and put
+    L times the warps on the card. Rule: L = 4 while B * 4 / 32 warps fit
+    one per sub-partition, else L = 1, as a second warp per sub-partition
+    costs more than it hides. On an H100 (132 SMs): 4 up to 4224 envs,
+    then 1. Measured there at 64 steps, small-angle (PERF.md, section
+    6): 1024 to 4096 envs L = 4 0.0490 ms, L = 1 0.0571; 8192 L = 1
+    0.0571, L = 2 0.0643, L = 4 0.0809; 16384 and 65536 L = 1 fastest.
+    (L = 2 never won; L = 8 won 3% at 2048 envs or fewer, a batch no
+    path of the port runs, and is not built.)"""
+    return 4 if (B // 32) * 4 <= 4 * n_sm else 1
 
 
 # ---------------------------------------------------------------------------
@@ -364,17 +416,60 @@ def rollout_step_math(params, packed, action, steps, acc,
 
 
 def _check_state(name, packed_state):
-    if not isinstance(packed_state, torch.Tensor) or packed_state.dim() != 3 \
-            or packed_state.shape[0] != N_CHANNELS \
-            or packed_state.shape[2] != LANE:
-        shape = getattr(packed_state, "shape", None)
+    """T of a contiguous float32 (13, T, 128) state; raises otherwise."""
+    if not isinstance(packed_state, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got "
+                        f"{type(packed_state)}")
+    shape = packed_state.shape
+    if len(shape) != 3 or shape[0] != N_CHANNELS or shape[2] != LANE:
         raise ValueError(f"{name}: expected a (13, T, 128) state, got "
-                         f"{tuple(shape) if shape is not None else shape}")
-    return packed_state.shape[1]
+                         f"{tuple(shape)}")
+    if packed_state.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got "
+                        f"{packed_state.dtype}")
+    if not packed_state.is_contiguous():
+        raise ValueError(f"{name}: the state must be contiguous")
+    return shape[1]
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
+_entries = {}   # csrc name -> its C entry point, bound once
+_n_sm = {}      # device index -> SM count
+
+
+def _entry(name):
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(_build.library(name), f"adrp_{name}")
+    return fn
+
+
+def _sm_count(idx):
+    n = _n_sm.get(idx)
+    if n is None:
+        n = _n_sm[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
+
+
+def _index(dev):
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _stream(idx):
+    """The raw handle of device ``idx``'s current stream. (The getter
+    PyTorch's own generated kernels call: the public ``current_stream``
+    builds a Stream object, a few microseconds of host time a launch.)"""
+    return torch._C._cuda_getCurrentRawStream(idx)
+
+
+def _call(idx, fn, args):
+    """fn(args) with device ``idx`` made the current device for the call
+    if it is not already (``torch.cuda.device`` swaps the device twice,
+    a few microseconds a launch); returns the C error code."""
+    if torch._C._cuda_getDevice() == idx:
+        return fn(args)
+    with torch.cuda.device(idx):
+        return fn(args)
 
 
 def ctrl_step_packed(params, packed_state, rpm_packed, n_substeps: int,
@@ -384,9 +479,8 @@ def ctrl_step_packed(params, packed_state, rpm_packed, n_substeps: int,
     given, is ``hover_consts(params, n_substeps, dt)``, folded once.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
-    (csrc/hover_step.cu, one thread per env) on the current stream,
-    counting the launch in ``ctrl_step_packed.launches``. Any other device
-    raises."""
+    (csrc/hover_step.cu) on the current stream, counting the launch in
+    ``ctrl_step_packed.launches``. Any other device raises."""
     dev = packed_state.device
     if dev.type == "cpu":
         return ctrl_step_packed_plain(params, packed_state, rpm_packed,
@@ -394,15 +488,13 @@ def ctrl_step_packed(params, packed_state, rpm_packed, n_substeps: int,
     if dev.type != "cuda":
         raise ValueError(f"ctrl_step_packed: unsupported device {dev}")
     T = _check_state("ctrl_step_packed", packed_state)
-    _check_block("packed_state", packed_state, (N_CHANNELS, T, LANE), dev)
     _check_block("rpm_packed", rpm_packed, (ACT_CHANNELS, T, LANE), dev)
     out = torch.empty_like(packed_state)
-    consts = consts_struct(consts or hover_consts(params, n_substeps, dt))
-    lib = _build.library("hover_step")
-    with torch.cuda.device(dev):
-        err = lib.adrp_hover_step(
-            packed_state.data_ptr(), rpm_packed.data_ptr(), out.data_ptr(),
-            T * LANE, ctypes.addressof(consts), THREADS, _stream(dev))
+    cs = consts_struct(consts or hover_consts(params, n_substeps, dt))
+    idx = _index(dev)
+    err = _call(idx, _entry("hover_step"), _STEP_ARGS.pack(
+        packed_state.data_ptr(), rpm_packed.data_ptr(), out.data_ptr(),
+        ctypes.addressof(cs), _stream(idx), T * LANE, THREADS))
     launch_error("ctrl_step_packed", err)
     ctrl_step_packed.launches += 1
     return out
@@ -433,27 +525,23 @@ def launch_rollout(name, c, packed_state, seed, n_steps, smallangle,
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     T = _check_state(name, packed_state)
-    _check_block("packed_state", packed_state, (N_CHANNELS, T, LANE), dev)
     if actions is not None:
         _check_block("actions", actions, (n_steps, ACT_CHANNELS, T, LANE),
                      dev)
     if n_steps < 0:
         raise ValueError(f"{name}: n_steps {n_steps} < 0")
     out = torch.empty_like(packed_state)
-    acc = torch.empty((T, LANE), dtype=torch.float32, device=dev)
-    resets = (torch.empty((T, LANE), dtype=torch.float32, device=dev)
-              if count_resets else None)
-    consts = consts_struct(c)
-    lib = _build.library("hover_rollout")
-    with torch.cuda.device(dev):
-        err = lib.adrp_hover_rollout(
-            packed_state.data_ptr(),
-            None if actions is None else actions.data_ptr(),
-            out.data_ptr(), acc.data_ptr(),
-            None if resets is None else resets.data_ptr(),
-            T * LANE, int(n_steps), int(seed) & 0xFFFFFFFF,
-            int(bool(smallangle)), int(bool(near_sqrt)),
-            ctypes.addressof(consts), THREADS, _stream(dev))
+    acc = packed_state.new_empty((T, LANE))
+    resets = packed_state.new_empty((T, LANE)) if count_resets else None
+    cs = consts_struct(c)
+    B, idx = T * LANE, _index(dev)
+    err = _call(idx, _entry("hover_rollout"), _ROLLOUT_ARGS.pack(
+        packed_state.data_ptr(), 0 if actions is None else actions.data_ptr(),
+        out.data_ptr(), acc.data_ptr(),
+        0 if resets is None else resets.data_ptr(), ctypes.addressof(cs),
+        _stream(idx), B, int(n_steps), int(seed) & 0xFFFFFFFF,
+        int(bool(smallangle)), int(bool(near_sqrt)),
+        lane_count(B, _sm_count(idx)), THREADS))
     launch_error(name, err)
     return (out, acc, resets) if count_resets else (out, acc)
 

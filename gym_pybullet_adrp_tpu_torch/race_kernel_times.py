@@ -35,19 +35,23 @@ from pathlib import Path
 N_ENVS = 4096
 
 
-def ptxas_entries(report):
-    """{kernel: {registers, stack, spill_stores, spill_loads}} of the race
-    step and rollout kernels in an ``nvcc -Xptxas -v`` report; a template
-    instantiation is named ``<true>`` (policy) or ``<false>``."""
+RACE_KERNELS = ("race_step_kernel", "race_rollout_kernel")
+
+
+def ptxas_entries(report, kernels=RACE_KERNELS):
+    """{instantiation: {registers, stack, spill_stores, spill_loads}} of the
+    kernels named ``kernels`` (base names) in an ``nvcc -Xptxas -v``
+    report; a template instantiation is named by its mangled template
+    arguments, a bool as 0 or 1 (``race_step_kernel<1>`` with the policy,
+    ``hover_rollout_kernel<1,0,4>``)."""
     out = {}
     for block in report.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
-        base = next((k for k in ("race_step_kernel", "race_rollout_kernel")
-                     if k in mangled), None)
+        base = next((k for k in kernels if k in mangled), None)
         if base is None:
             continue
-        name = base + ("<true>" if "ILb1E" in mangled else
-                       "<false>" if "ILb0E" in mangled else "")
+        args = re.findall(r"L[bi](\d+)E", mangled)
+        name = f"{base}<{','.join(args)}>" if args else base
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", block)
         regs = re.search(r"Used (\d+) registers", block)
@@ -60,10 +64,11 @@ def ptxas_entries(report):
     return out
 
 
-def device_ms(fn, n=20, sleep_cycles=20_000_000):
-    """Device time per call of ``fn``: ``n`` calls queued behind a spin
-    kernel, so that the events time the launches back to back; the spin
-    is doubled until it outlasts the host's queueing."""
+def device_host_ms(fn, n=20, sleep_cycles=20_000_000):
+    """(device ms, host ms) per call of ``fn``: ``n`` calls queued behind
+    a spin kernel, so that the events time the launches back to back and
+    the host's clock times their enqueue alone; the spin is doubled until
+    it outlasts the host's queueing."""
     import torch
 
     fn()
@@ -80,10 +85,15 @@ def device_ms(fn, n=20, sleep_cycles=20_000_000):
         ev[2].record()
         torch.cuda.synchronize()
         if host_ms < ev[0].elapsed_time(ev[1]):
-            return ev[1].elapsed_time(ev[2]) / n
+            return ev[1].elapsed_time(ev[2]) / n, host_ms / n
         sleep_cycles *= 2
     raise RuntimeError(f"the host queued {n} calls in {host_ms} ms, longer "
                        "than the spin")
+
+
+def device_ms(fn, n=20, sleep_cycles=20_000_000):
+    """Device time per call of ``fn`` (``device_host_ms``)."""
+    return device_host_ms(fn, n, sleep_cycles)[0]
 
 
 def policy_pack(env, hidden=(64, 64), seed=3):
@@ -196,6 +206,39 @@ def measure():
     return rec
 
 
+def run_trees(script, trees, out, label):
+    """Run ``script --worker [ARG]`` once per tree, in order, each in a
+    process of its own with the tree's package first on its path; a tree
+    is DIR or DIR@ARG. Prints and returns the JSON records (the tree
+    added); writes them to ``out`` as well, if given."""
+    script = Path(script).resolve()
+    lines, failed = [], []
+    for tree in trees:
+        path, _, arg = tree.partition("@")
+        root = Path(path).resolve()
+        argv = [str(script), "--worker"] + ([arg] if arg else [])
+        # the package of `root` comes first on the worker's path
+        code = (f"import runpy, sys; sys.path.insert(0, {str(root)!r}); "
+                f"sys.argv = {argv!r}; "
+                f"runpy.run_path({str(script)!r}, run_name='__main__')")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stdout + proc.stderr[-4000:])
+            failed.append(tree)
+            continue
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec["tree"] = tree
+        lines.append(json.dumps(rec))
+        print(lines[-1], flush=True)
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text("\n".join(lines) + "\n")
+    if failed:
+        print(f"{label}: failed: {failed}", file=sys.stderr)
+    return 1 if failed else 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", action="append", default=None,
@@ -209,29 +252,8 @@ def main():
         print(json.dumps(measure()), flush=True)
         return 0
     here = Path(__file__).resolve()
-    lines, failed = [], []
-    for tree in args.tree or [str(here.parent.parent)]:
-        root = Path(tree).resolve()
-        # the package of `root` comes first on the worker's path
-        code = (f"import runpy, sys; sys.path.insert(0, {str(root)!r}); "
-                f"sys.argv = [{str(here)!r}, '--worker']; "
-                f"runpy.run_path({str(here)!r}, run_name='__main__')")
-        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
-                              capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stdout + proc.stderr[-4000:])
-            failed.append(str(tree))
-            continue
-        rec = json.loads(proc.stdout.strip().splitlines()[-1])
-        rec["tree"] = str(tree)
-        lines.append(json.dumps(rec))
-        print(lines[-1], flush=True)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text("\n".join(lines) + "\n")
-    if failed:
-        print(f"race_kernel_times: failed: {failed}", file=sys.stderr)
-    return 1 if failed else 0
+    return run_trees(here, args.tree or [str(here.parent.parent)], args.out,
+                     "race_kernel_times")
 
 
 if __name__ == "__main__":

@@ -407,3 +407,99 @@ def test_hover_wrappers_validate_inputs(dev):
                                                  dtype=torch.float64), 2)
     with pytest.raises(ValueError):
         op_calibrate.op_chain("sin", torch.zeros((8, 64), device=dev), 2)
+
+
+# The hover rollout kernels run an env on a group of L lanes, L from the
+# batch (hover_step.lane_count: 4 at 1024 and 4096 envs and 1 at 65536 on
+# an H100's 132 SMs), and every rank computes the plain version's
+# operations in its order: each kernel equals its plain version bit for
+# bit at each of those batches, and a 65536-env launch (L = 1) gives its
+# first 1024 envs the bits of a 1024-env launch of them (L = 4).
+
+HOVER_KERNELS = ("k1", "k2_smallangle", "k2_exact", "k7", "k7_exact_sqrt",
+                 "k8")
+
+
+def _hover_case(dev, kernel, n_envs, n_steps, acts):
+    """(kernel fn, plain fn, launch counter owner) of a hover kernel id,
+    each a function of (state[, rpm]) that returns a tuple."""
+    P = drone_params(device=dev)
+    kw = dict(actions=acts, count_resets=True)
+    if kernel == "k1":
+        return (lambda st, rpm: (hs.ctrl_step_packed(P, st, rpm, 8, 1 / 240),),
+                lambda st, rpm: (hs.ctrl_step_packed_plain(P, st, rpm, 8,
+                                                           1 / 240),),
+                hs.ctrl_step_packed)
+    if kernel.startswith("k2"):
+        small = kernel == "k2_smallangle"
+        return (lambda st, rpm: hs.hover_rollout(
+                    P, st, 21, n_steps, smallangle=small, **kw),
+                lambda st, rpm: hs.hover_rollout_plain(
+                    P, st, 21, n_steps, smallangle=small, **kw),
+                hs.hover_rollout)
+    if kernel == "k8":
+        return (lambda st, rpm: hv.hover_rollout_v3(P, st, 21, n_steps, **kw),
+                lambda st, rpm: hv.hover_rollout_v3_plain(P, st, 21, n_steps,
+                                                          **kw),
+                hv.hover_rollout_v3)
+    sq = kernel == "k7_exact_sqrt"
+    return (lambda st, rpm: hv.hover_rollout_v2(P, st, 21, n_steps,
+                                                exact_sqrt=sq, **kw),
+            lambda st, rpm: hv.hover_rollout_v2_plain(P, st, 21, n_steps,
+                                                      exact_sqrt=sq, **kw),
+            hv.hover_rollout_v2)
+
+
+# K1 takes its rpm as input: it has no draw mode
+KERNEL_MODES = [(k, m) for k in HOVER_KERNELS for m in ("injected", "random")
+                if not (k == "k1" and m == "random")]
+
+
+@pytest.mark.parametrize("n_envs", [1024, 4096, 65536])
+@pytest.mark.parametrize("kernel,mode", KERNEL_MODES)
+def test_hover_kernel_bit_for_bit_at_each_lane_count(dev, kernel, mode,
+                                                     n_envs):
+    """Random attitudes and rates, 128 envs in ground contact, 37 steps
+    (13 at 65536 envs): not a multiple of L, so the last run of steps is
+    short; episodes end and reset inside the launch."""
+    _, st, rpm, gen = _hover_state(dev, n_envs)
+    n_steps = 13 if n_envs == 65536 else 37
+    acts = ((torch.rand((n_steps, 4, n_envs // 128, 128), generator=gen,
+                        device=dev) - 0.5) * 0.1
+            if mode == "injected" else None)
+    fn, plain_fn, owner = _hover_case(dev, kernel, n_envs, n_steps, acts)
+    before = owner.launches
+    got = fn(st, rpm)
+    assert owner.launches == before + 1
+    ref = plain_fn(st, rpm)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    if kernel != "k1":
+        assert float(got[2].sum()) > 0       # episodes ended in the launch
+
+
+def test_hover_lane_counts_on_this_card(dev):
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lanes = {B: hs.lane_count(B, n_sm) for B in (1024, 65536)}
+    assert lanes[65536] == 1 and lanes[1024] > 1
+
+
+@pytest.mark.parametrize("kernel,mode", [
+    km for km in KERNEL_MODES if km[0] in ("k1", "k2_smallangle", "k2_exact")])
+def test_hover_kernels_batch_independent(dev, kernel, mode):
+    """The first 1024 envs of a 65536-env launch (one lane per env) equal a
+    1024-env launch of the same states, draws and seed (a lane group per
+    env), bit for bit."""
+    _, st, rpm, gen = _hover_state(dev, 65536, seed=4)
+    n_steps = 21
+    acts = ((torch.rand((n_steps, 4, 512, 128), generator=gen, device=dev)
+             - 0.5) * 0.1 if mode == "injected" else None)
+    big = _hover_case(dev, kernel, 65536, n_steps, acts)[0](st, rpm)
+    small_acts = None if acts is None else acts[:, :, :8].contiguous()
+    small = _hover_case(dev, kernel, 1024, n_steps, small_acts)[0](
+        st[:, :8].contiguous(), rpm[:, :8].contiguous())
+    torch.cuda.synchronize()
+    for a, b in zip(big, small):
+        assert torch.equal(a[..., :8, :], b)

@@ -438,3 +438,59 @@ def test_hover_wrappers_refuse_other_devices(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         op_calibrate.chain_time("fma", 1, 8)
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 8])
+def test_lane_count_rule(n_sm):
+    """L is 4 while B * 4 / 32 warps fit one per SM sub-partition (four per
+    SM), else 1; it never rises with B, and each L it picks is built."""
+    last = 4
+    for B in range(128, 131072 + 1, 128):
+        L = hs.lane_count(B, n_sm)
+        assert L in hs.ROLLOUT_LANES and L <= last
+        assert L == (4 if B // 32 * 4 <= 4 * n_sm else 1)
+        last = L
+    if n_sm == 132:   # an H100 SXM
+        assert [hs.lane_count(B) for B in (1024, 2048, 4096, 4224, 4352,
+                                           8192, 16384, 65536)] == \
+            [4, 4, 4, 4, 1, 1, 1, 1]
+
+
+def test_launch_args_pack_as_the_c_structs():
+    """The packed arguments of the hover entry points have the size and
+    field offsets of ``struct RolloutArgs`` (csrc/hover_rollout.cu) and
+    ``struct StepArgs`` (csrc/hover_step.cu) on a 64-bit host: pointers
+    first, then B, then the 32-bit fields."""
+    assert hs._ROLLOUT_ARGS.size == 88 and hs._STEP_ARGS.size == 56
+    buf = hs._ROLLOUT_ARGS.pack(1, 0, 3, 4, 0, 6, 7, 2 ** 40, 64,
+                                0xFFFFFFFF, 1, 0, 4, 128)
+    assert np.frombuffer(buf[:64], dtype="<u8").tolist() == \
+        [1, 0, 3, 4, 0, 6, 7, 2 ** 40]
+    assert np.frombuffer(buf[64:], dtype="<u4").tolist() == \
+        [64, 0xFFFFFFFF, 1, 0, 4, 128]
+    buf = hs._STEP_ARGS.pack(1, 2, 3, 4, 5, 4096, 128)
+    assert np.frombuffer(buf[:48], dtype="<u8").tolist() == \
+        [1, 2, 3, 4, 5, 4096]
+    assert np.frombuffer(buf[48:], dtype="<u4").tolist() == [128, 0]
+
+
+def test_folded_consts_carry_their_struct():
+    """hover_consts folds its ctypes struct once: equal field by field to a
+    fresh struct of the same values, read-only, and each call has its
+    own."""
+    c = hs.hover_consts(P, 8, 1 / 240)
+    fresh = hs.consts_struct(dict(c))
+    assert hs.consts_struct(c) is c.struct
+    assert hs.consts_struct(dict(c)) is not c.struct
+    for name, _ in hs.HoverConsts._fields_:
+        assert getattr(c.struct, name) == getattr(fresh, name), name
+    assert bytes(c.struct) == bytes(fresh)
+    with pytest.raises(TypeError):
+        c["dt"] = 0.5
+    with pytest.raises(TypeError):
+        c.update(dt=0.5)
+    other = hs.hover_consts(P, 4, 1 / 120)
+    assert other.struct is not c.struct
+    assert other.struct.n_substeps == 4 and c.struct.n_substeps == 8
+    assert other.struct.dt == pytest.approx(1 / 120, rel=1e-6)
+    assert bytes(hs.hover_consts(P, 8, 1 / 240).struct) == bytes(c.struct)
