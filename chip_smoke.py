@@ -17,8 +17,12 @@ against its plain version and through fast_hover.make_step at bench.py's
 bench.py's headline workload; the A/B variants against the rollout
 kernel's instantiations; the op-cost chains and the card's per-op
 calibration. Phase 16 trains hover PPO through the control-step kernel
-and through the RL hover env. Every phase prints its lines; any failed
-phase exits non-zero without the final result line.
+and through the RL hover env. Phase 17 brings up the general race env:
+the window kernel against its plain version at every lane count it
+runs, its route (envs/race_fast.py) against the eager step in closed
+loop, and the general trainer with and without ``--fast``. Every phase
+prints its lines; any failed phase exits non-zero without the final
+result line.
 
 Usage (needs one CUDA device and nvcc; no JAX):
   python3 chip_smoke.py [--out DIR]
@@ -1432,6 +1436,227 @@ def phase16(dev, gpu, kernels, plain, totals, iters=10):
     return res
 
 
+def k3_inputs(dev, gen, eval_race, cfg, n_envs, nd, planner):
+    """(env, S, W, noise) of a window launch over ``n_envs`` x ``nd``
+    agents of config ``cfg`` after three random steps: the window statics
+    of random FULLSTATE actions and, with ``planner``, the poly7 planner
+    on every other agent with random coefficients around the agent (as
+    phase 3). ``noise`` is the config's disturbance block, or a block
+    drawn like it where the config has none."""
+    from gym_pybullet_adrp_tpu_torch.race_kernel_times import k3_window
+
+    env = eval_race.make_eval_env(cfg, n_envs, dev, seed=1, n_drones=nd)
+    st = env.reset()
+    for _ in range(3):
+        a = torch.rand((n_envs, nd, 4), generator=gen, device=dev) * 2 - 1
+        st = env.step(st, a)[0]
+    W = k3_window(env, st, gen, planner)
+    nz = env.step_draws().noise_rows
+    if nz is None:
+        shape = (env.n_ticks, 3, env.T, 128)
+        nz = torch.cat([
+            torch.rand(shape, generator=gen, device=dev) * 0.2 - 0.1,
+            torch.randn((env.n_ticks, 4, env.T, 128), generator=gen,
+                        device=dev) * 0.001], dim=1).contiguous()
+    return env, st.S.contiguous(), W, nz
+
+
+def phase17(dev, gen, gpu, eval_race, race_window, kernels, plain, totals,
+            n_envs=4096, big=65536, iters=3, eager_envs=256):
+    """The general race env and its trainer. (a) K3 against its
+    plain version bit for bit at the --fast trainer's 4096 x 1 agents,
+    level1's 4096 x 2 (noise) and 65536, with and without noise and the
+    planner, at the lane count the wrapper picks and at L = 1 and L = 4
+    forced; (b) the K3 route against the eager race_step in closed loop
+    (tests/test_pallas_race.py:36-59); (c) train(general, fast, twogates,
+    4096 envs x 64 steps): 64 K3 launches an iteration; (d) the eager
+    general path at 256 envs."""
+    from gym_pybullet_adrp_tpu_torch import train_race
+    from gym_pybullet_adrp_tpu_torch.control import commander as pcmd
+    from gym_pybullet_adrp_tpu_torch.envs import race as prace
+    from gym_pybullet_adrp_tpu_torch.envs import race_fast as pfast
+    from gym_pybullet_adrp_tpu_torch.race_kernel_times import ptxas_entries
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+    from gym_pybullet_adrp_tpu_torch.utils.enums import Command, RaceMode
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    from gym_pybullet_adrp_tpu_torch.ops import _build
+
+    ptx = ptxas_entries(_build.build_info["ptxas"], ("race_window_kernel",))
+    print("[17] race_window instantiations: " + "; ".join(
+        f"{k} {v['registers']} registers, {v['stack']} B stack, "
+        f"{v['spill_stores']}/{v['spill_loads']} B spill stores/loads"
+        for k, v in ptx.items()), flush=True)
+    out = {"ptxas": ptx, "lanes": {}, "max_abs_err": 0.0}
+
+    # ---- (a) K3 vs plain at every lane count ------------------------------
+    orig = race_window.lane_count
+    cases = (("twogates", n_envs, 1), ("level1", n_envs, 2),
+             ("getting_started", big, 1))
+    for cfg, envs, nd in cases:
+        A = envs * nd
+        out["lanes"][A] = orig(A, n_sm)
+        for planner in (False, True):
+            env, S, W, nz = k3_inputs(dev, gen, eval_race, cfg, envs, nd,
+                                      planner)
+            c = race_window.window_consts(env.kf, env.km, env.arm,
+                                          env.ground_z, env.dt, env.n_ticks)
+            for noise in (False, True):
+                n_ = nz if noise else None
+                ref = race_window.race_window_plain(
+                    env.kf, env.km, env.arm, env.ground_z, S, W, env.n_ticks,
+                    env.dt, n_)
+                for L in (None, 1, 4):
+                    if L is not None:
+                        race_window.lane_count = (
+                            lambda a, n_sm=132, _L=L: _L)
+                    try:
+                        got = race_window.race_window(
+                            env.kf, env.km, env.arm, env.ground_z, S, W,
+                            env.n_ticks, env.dt, n_, consts=c)
+                        torch.cuda.synchronize()
+                    finally:
+                        race_window.lane_count = orig
+                    tag = (f"race_window[{cfg} {A} agents, "
+                           f"{'planner' if planner else 'hold'}, "
+                           f"{'noise' if noise else 'calm'}, L = "
+                           f"{L or orig(A, n_sm)}{'' if L else ' (picked)'}]")
+                    err = float((got - ref).abs().max())
+                    out["max_abs_err"] = max(out["max_abs_err"], err)
+                    check(torch.isfinite(got).all().item(),
+                          f"{tag}: non-finite")
+                    check(torch.equal(got, ref),
+                          f"{tag}: not bit for bit (max abs err {err})")
+            print(f"[17] race_window vs plain, {cfg} {envs} x {nd} = {A} "
+                  f"agents, {'planner on half' if planner else 'no planner'}"
+                  f", with and without noise: equal bit for bit at L = {out['lanes'][A]} (picked), "
+                  f"1 and 4", flush=True)
+
+    # K3's numbers at the --fast trainer's shape (twogates 4096 x 1, the
+    # FULLSTATE targets of its actions: no planner)
+    env, S, W, _ = k3_inputs(dev, gen, eval_race, "twogates", n_envs, 1,
+                             False)
+    c = race_window.window_consts(env.kf, env.km, env.arm, env.ground_z,
+                                  env.dt, env.n_ticks)
+
+    def k3():
+        return race_window.race_window(env.kf, env.km, env.arm,
+                                       env.ground_z, S, W, env.n_ticks,
+                                       env.dt, None, consts=c)
+
+    def k3_plain():
+        return race_window.race_window_plain(env.kf, env.km, env.arm,
+                                             env.ground_z, S, W,
+                                             env.n_ticks, env.dt, None)
+
+    out["queued_ms"], out["host_ms"] = device_host_ms(k3)
+    traced_ms = kernel_ms(k3, "race_window_kernel")
+    out["ms"] = out["queued_ms"] if traced_ms is None else traced_ms
+    out["plain_ms"] = cuda_ms(k3_plain, 3, warmup=1)
+    out.update(bound((S, W), (S,), count_ops(k3_plain)))
+    print(f"[17] race_window at the --fast trainer's shape (twogates "
+          f"{n_envs} x 1, FULLSTATE): {out['ms']:.4g} ms on the device "
+          f"({'trace' if traced_ms is not None else 'queued'}; queued "
+          f"{out['queued_ms']:.4g}), host enqueue {out['host_ms']:.4g} ms a "
+          f"call, L = {out['lanes'][n_envs]}; plain {out['plain_ms']:.4g} ms; "
+          f"bound {out['bound_ms']:.4g} ms ({out['bound_by']})", flush=True)
+
+    # ---- (b) the K3 route against the eager race_step, closed loop --------
+    cfg = load_config("getting_started")
+    spec = prace.RaceSpec.from_config(cfg, 2, RaceMode.COMPARE)
+    track = prace.track_tensors(prace.track_from_config(cfg, 2), dev)
+    B = 128
+    s_ref = prace.race_reset(spec, track, B, device=dev)
+    s_fast = prace.race_reset(spec, track, B, device=dev)
+    seq = ([(Command.TAKEOFF, (0.3, 1.0))] + [(Command.NONE, ())] * 12
+           + [(Command.FULLSTATE, ([0.5, 0.5, 0.5], [0, 0, 0], [0, 0, 0],
+                                   0.1, [0, 0, 0], 0.6))] * 5)
+    consts = pfast.window_consts_of(spec)
+    with plain, LaunchCount(kernels, totals) as la:
+        for cmd, args in seq:
+            cid, vec = pcmd.pack_command(cmd, args)
+            ids = torch.full((B, 2), cid, dtype=torch.int32, device=dev)
+            arg = torch.as_tensor(vec, device=dev).expand(B, 2, -1)
+            s_ref = prace.race_step(spec, track, s_ref, ids, arg)[0]
+            s_fast = pfast.batched_race_step_fast(spec, track, s_fast, ids,
+                                                  arg, consts)[0]
+        torch.cuda.synchronize()
+    dpos = float((s_ref.phys.pos - s_fast.phys.pos).abs().max())
+    z = s_fast.phys.pos[:, 0, 2]
+    print(f"[17] batched_race_step_fast vs race_step, getting_started "
+          f"{B} x 2, TAKEOFF + FULLSTATE ({len(seq)} steps, "
+          f"{la['race_window']} race_window launches): max |dpos| {dpos:.3g}"
+          f" (bound 0.05), drone 0 z {float(z.min()):.4g}-"
+          f"{float(z.max()):.4g} (bound 0.12-0.8)", flush=True)
+    check(la["race_window"] == len(seq), f"closed loop launches {dict(la)}")
+    check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+    check(dpos < 0.05, f"closed loop: dpos {dpos}")
+    check(torch.equal(s_ref.eliminated, s_fast.eliminated)
+          and torch.equal(s_ref.current_gate, s_fast.current_gate),
+          "closed loop: gates or eliminations differ")
+    check(bool(((0.12 < z) & (z < 0.8)).all()), "closed loop: altitude")
+    out["closed_loop_dpos"] = dpos
+
+    # ---- (c) the --fast trainer ----------------------------------------------
+    kw = dict(config="twogates", n_envs=n_envs, n_steps=64, general=True,
+              device=dev, log_every=1)
+    with plain, LaunchCount(kernels, totals) as la:
+        t0 = time.perf_counter()
+        res = train_race.train(fast=True, iters=iters, **kw)
+        wall = time.perf_counter() - t0
+    check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+    check(la["race_window"] == 64 * iters,
+          f"--fast trainer: {la['race_window']} race_window launches in "
+          f"{iters} iterations, not 64 each")
+    m = res["metrics"]
+    check(all(math.isfinite(x["loss"]) for x in m), "a non-finite loss")
+    steady = res["times"][1:]
+    phase_ms = {k: 1e3 * sum(t[k] for t in steady) / len(steady)
+                for k in steady[0]}
+    rate = res["cfg"].batch_size / (phase_ms["iteration"] / 1e3)
+    t_wall, events = traced(lambda: res["train_step"](res["ts"]))
+    busy = sum(us for _, _, us in events) / 1e3
+    k3_n, k3_ms = kernel_time(events, "race_window_kernel")
+    idle = max(0.0, 1.0 - busy / t_wall)
+    out["fast_trainer"] = {"launches_per_iteration": la["race_window"]
+                           // iters, "phase_ms": phase_ms,
+                           "env_steps_per_sec": rate, "idle_share": idle,
+                           "busy_ms": busy, "wall_ms": t_wall,
+                           "k3_traced": [k3_n, k3_ms],
+                           "losses": [x["loss"] for x in m]}
+    out["launches"] = la["race_window"]
+    print(f"[17] train(twogates, general, fast, {n_envs} envs x 64 steps, "
+          f"{iters} iterations) in {wall:.1f} s: {la['race_window']} "
+          f"race_window launches ({la['race_window'] // iters} an "
+          f"iteration), losses {[round(x['loss'], 5) for x in m]}; ms per "
+          f"iteration (2-{iters}): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in phase_ms.items())
+          + f"; {rate:.6g} env-steps/s; one traced iteration: wall "
+          f"{t_wall:.4g} ms, device busy {busy:.4g} ms (idle share "
+          f"{idle:.3f}), {k3_n} race_window launches traced, {k3_ms:.4g} "
+          f"ms; on {gpu}", flush=True)
+
+    # ---- (d) the eager general path at the JAX script's 256 envs ---------
+    with plain, LaunchCount(kernels, totals) as la:
+        res = train_race.train(iters=2, **dict(kw, n_envs=eager_envs,
+                                               log_every=0))
+    check(all(math.isfinite(x["loss"]) for x in res["metrics"]),
+          "eager general: a non-finite loss")
+    check(la["race_window"] == 0 and not any(plain.calls.values()),
+          f"eager general: launches {dict(la)}, plain calls {plain.calls}")
+    t = res["times"][-1]
+    step_ms = t["rollout"] / 64 * 1e3
+    out["eager_general"] = {
+        "phase_ms": {k: v * 1e3 for k, v in t.items()},
+        "ms_per_env_step": step_ms,
+        "env_steps_per_sec": eager_envs * 64 / t["iteration"]}
+    print(f"[17] train(twogates, general, {eager_envs} envs x 64 steps, "
+          f"eager 20-tick loop), iteration 2: "
+          + ", ".join(f"{k} {v * 1e3:.4g} ms" for k, v in t.items())
+          + f"; {step_ms:.4g} ms per env step (host-bound)", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -1735,6 +1960,12 @@ def main():
                                   main_launches)
     hover_ppo = phase16(dev, gpu, kernels, plain, main_launches)
 
+    # ---- 17. the general race env, its K3 route and trainer ---------------
+    results["race_window[phase 3]"] = results["race_window"]
+    general = phase17(dev, gen, gpu, eval_race, race_window, kernels, plain,
+                      main_launches)
+    results["race_window"] = general
+
     src = "gym_pybullet_adrp_tpu_torch/csrc/"
     kernels = [
         {"name": "race_window", "route": "cuda",
@@ -1765,6 +1996,9 @@ def main():
          "source": src + "op_chain.cu",
          "replaces": "scripts/vpu_calibrate.py:84"},
     ]
+    # K3's launches are its main path's, the --fast trainer's (phase 17);
+    # the others', every path's that launched them
+    main_launches["race_window"] = general["launches"]
     for k in kernels:
         r = results[k["name"]]
         k.update(launches=main_launches[k["name"]],
@@ -1777,12 +2011,14 @@ def main():
             "device": gpu, "kernels": kernels, "results": results,
             "eval_fused": m_fused, "eval_unfused": m_unfused,
             "env_steps_per_sec": {"kernel": kern_rate, "plain": plain_rate},
-            "loop_ms": {"race_window": results["race_window"]["loop_ms"],
+            "loop_ms": {"race_window":
+                        results["race_window[phase 3]"]["loop_ms"],
                         "race_step_fused": k4["loop_ms"]},
             "profile": prof, "scaling": scaling,
             "seconds": {"eval_fused": t_fused, "eval_unfused": t_unfused},
             "ppo_card_vs_cpu": ppo_err, "training": train_out,
             "rollout_times": times11, "hover_ppo": hover_ppo,
+            "general": general,
             "launches": main_launches,
         }, indent=1, default=str))
     print(gpu)

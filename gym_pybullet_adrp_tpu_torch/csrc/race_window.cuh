@@ -26,18 +26,22 @@
 // update, the control law's rotation chain) itself; the independent items
 // of a tick whose cost outweighs a shuffle are dealt out: the three Euler
 // angles (two cephes atan2 and an asin, one instruction stream with
-// per-lane operands, euler_item) and the four motors' PWM pipeline and
-// thrust-noise round trip. Item i is computed by rank i and sent to every
-// rank with __shfl_sync, so every value comes from the same operations in
-// the same order as with L = 1; with L = 1 the lane computes every item
-// with a compile-time index, which folds the dealt-out code to each
-// function's own operations. (L = 2, two rounds of items, measured
-// slower than both: PERF.md.) Items whose
-// operands would need a per-lane select chain (the biquads, the per-axis
-// integrals) or that cost less than the shuffle (the motor forces, the
-// per-axis velocity) stay redundant. The race_window kernel (K3) runs
-// L = 1, one thread per agent; K4 and K5 run L = 4 without the policy
-// and L = 1 with it (race_step.cuh says why).
+// per-lane operands, euler_item), the four motors' PWM pipeline and
+// thrust-noise round trip, and, with the planner (COEFFS), the four poly7
+// channels x, y, z, yaw: rank c evaluates channel c from its own eight
+// coefficients (the kernel loads only those, so a rank holds 8 of the 32
+// in registers; all 32 on every rank measured no faster than L = 1,
+// PERF.md). Item i is computed by rank i and sent to
+// every rank with __shfl_sync, so every value comes from the same
+// operations in the same order as with L = 1; with L = 1 the lane
+// computes every item with a compile-time index, which folds the
+// dealt-out code to each function's own operations. (L = 2, two rounds of
+// items, measured slower than both: PERF.md.) Items whose operands would
+// need a per-lane select chain (the biquads, the per-axis integrals) or
+// that cost less than the shuffle (the motor forces, the per-axis
+// velocity) stay redundant. The race_window kernel (K3) picks L from the
+// agent count (ops/race_window.py, lane_count); K4 and K5 run L = 4
+// without the policy and L = 1 with it (race_step.cuh says why).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -73,7 +77,9 @@ struct WinStatics {
   float sp_yaw_quat_deg, sp_thrust;
   bool pos_mode, z_disable, planner, eliminated;
   float t_begin, duration, mass, J[3];
-  float coeffs[32];  // poly7 x8,y8,z8,yaw8 (read only with the planner)
+  // poly7 x8,y8,z8,yaw8 (read only with the planner); at L = 4
+  // coeffs[0..7] hold the channel of the lane's rank
+  float coeffs[32];
 };
 
 __device__ __forceinline__ float clipf(float x, float lo, float hi) {
@@ -304,14 +310,25 @@ __device__ __forceinline__ void window_loop(float (&s)[S_CH],
     float t_now = tick * dt;
     float spx, spy, spz, svx, svy, svz, sax, say, saz, srx, sry, srz;
     float desired_yaw_deg;
-    if (COEFFS) {
+    if constexpr (COEFFS) {
       float safe_T = w.duration > 0.0f ? w.duration : 1.0f;
       float sn = clipf((t_now - w.t_begin) / safe_T, 0.0f, 1.0f);
       float pe[4][3];
+      if constexpr (L == 1) {
 #pragma unroll
-      for (int ch = 0; ch < 4; ++ch)
-        poly_channel(w.coeffs + 8 * ch, sn, safe_T, pe[ch][0], pe[ch][1],
-                     pe[ch][2]);
+        for (int ch = 0; ch < 4; ++ch)
+          poly_channel(w.coeffs + 8 * ch, sn, safe_T, pe[ch][0], pe[ch][1],
+                       pe[ch][2]);
+      } else {
+        // rank c holds channel c's coefficients (L == 4 channels)
+        float own[3];
+        poly_channel(w.coeffs, sn, safe_T, own[0], own[1], own[2]);
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch)
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            pe[ch][k] = __shfl_sync(0xffffffffu, own[k], ch, L);
+      }
       bool pl = w.planner;
       spx = pl ? pe[0][0] : w.sp_pos[0];
       spy = pl ? pe[1][0] : w.sp_pos[1];

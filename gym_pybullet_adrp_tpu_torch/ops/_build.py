@@ -130,7 +130,8 @@ def library(name):
     if not _libs:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         sigs = {
-            "race_window": ("adrp_race_window", [vp, vp, vp, vp, ll, vp, vp]),
+            # one packed buffer of arguments (ops/race_window.py)
+            "race_window": ("adrp_race_window", [ctypes.c_char_p]),
             "race_step": ("adrp_race_step", [vp, vp, vp]),
             "race_rollout": ("adrp_race_rollout", [vp, vp, vp]),
             # one packed buffer of arguments (ops/hover_step.py)
@@ -158,3 +159,64 @@ def library(name):
 def error_string(err: int) -> str:
     msg = library("race_window").adrp_error_string(err).decode()
     return f"{err} ({msg})"
+
+
+def launch_error(name, err):
+    """Raise on a launch's non-zero ``cudaGetLastError``."""
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: {error_string(err)}")
+
+
+# ---------------------------------------------------------------------------
+# what a wrapper needs per launch, looked up once
+
+
+_entries = {}   # csrc name -> its C entry point, bound once
+_n_sm = {}      # device index -> SM count
+
+
+def entry(name):
+    """The C entry point ``adrp_<name>`` of ``csrc/<name>.cu``."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(library(name), f"adrp_{name}")
+    return fn
+
+
+def sm_count(idx):
+    """The SM count of CUDA device ``idx``."""
+    n = _n_sm.get(idx)
+    if n is None:
+        import torch
+
+        n = _n_sm[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
+
+
+def device_index(dev):
+    import torch
+
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def raw_stream(idx):
+    """The raw handle of device ``idx``'s current stream. (The getter
+    PyTorch's own generated kernels call: the public ``current_stream``
+    builds a Stream object, a few microseconds of host time a launch.)"""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(idx)
+
+
+def call_on(idx, fn, args):
+    """fn(args) with device ``idx`` made the current device for the call
+    if it is not already (``torch.cuda.device`` swaps the device twice,
+    a few microseconds a launch); returns the C error code."""
+    import torch
+
+    if torch._C._cuda_getDevice() == idx:
+        return fn(args)
+    with torch.cuda.device(idx):
+        return fn(args)

@@ -26,6 +26,7 @@ import torch
 
 from . import quat as quat_ops
 from ..models.drone import DroneParams
+from ..utils.device_consts import const
 from ..utils.enums import DroneModel, Physics
 
 
@@ -96,8 +97,7 @@ def thrust_torques(params: DroneParams, rpm, model: DroneModel,
         x_torque = (f1 - f3) * L
         y_torque = (-f0 + f2) * L
     else:  # CF2X / RACE: X formation
-        s = L / torch.sqrt(torch.tensor(2.0, dtype=rpm.dtype,
-                                        device=rpm.device))
+        s = L / torch.sqrt(const(2.0, rpm.dtype, rpm.device))
         x_torque = (f0 + f1 - f2 - f3) * s
         y_torque = (-f0 + f1 + f2 - f3) * s
 
@@ -119,7 +119,7 @@ def ground_effect(params: DroneParams, state: PhysState, rpm,
             torch.stack([-L, z, z], -1), torch.stack([z, -L, z], -1),
         ], dim=-2)
     else:
-        s = L / torch.sqrt(torch.tensor(2.0, dtype=dtype, device=dev))
+        s = L / torch.sqrt(const(2.0, dtype, dev))
         zs = torch.zeros_like(s)
         offs = torch.stack([
             torch.stack([s, s, zs], -1), torch.stack([-s, s, zs], -1),
@@ -141,7 +141,7 @@ def ground_effect(params: DroneParams, state: PhysState, rpm,
         x_t = (g1 - g3) * L
         y_t = (-g0 + g2) * L
     else:
-        s = L / torch.sqrt(torch.tensor(2.0, dtype=dtype, device=dev))
+        s = L / torch.sqrt(const(2.0, dtype, dev))
         x_t = (g0 + g1 - g2 - g3) * s
         y_t = (-g0 + g1 + g2 - g3) * s
     fz = g0 + g1 + g2 + g3

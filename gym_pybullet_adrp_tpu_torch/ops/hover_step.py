@@ -43,8 +43,10 @@ import struct
 import numpy as np
 import torch
 
-from . import _build
-from .race_step import launch_error
+from ._build import (
+    call_on as _call, device_index as _index, entry as _entry,
+    launch_error, raw_stream as _stream, sm_count as _sm_count,
+)
 from .race_window import _check_block
 from ..utils.enums import DroneModel, Physics
 
@@ -430,46 +432,6 @@ def _check_state(name, packed_state):
     if not packed_state.is_contiguous():
         raise ValueError(f"{name}: the state must be contiguous")
     return shape[1]
-
-
-_entries = {}   # csrc name -> its C entry point, bound once
-_n_sm = {}      # device index -> SM count
-
-
-def _entry(name):
-    fn = _entries.get(name)
-    if fn is None:
-        fn = _entries[name] = getattr(_build.library(name), f"adrp_{name}")
-    return fn
-
-
-def _sm_count(idx):
-    n = _n_sm.get(idx)
-    if n is None:
-        n = _n_sm[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return n
-
-
-def _index(dev):
-    return dev.index if dev.index is not None else torch.cuda.current_device()
-
-
-def _stream(idx):
-    """The raw handle of device ``idx``'s current stream. (The getter
-    PyTorch's own generated kernels call: the public ``current_stream``
-    builds a Stream object, a few microseconds of host time a launch.)"""
-    return torch._C._cuda_getCurrentRawStream(idx)
-
-
-def _call(idx, fn, args):
-    """fn(args) with device ``idx`` made the current device for the call
-    if it is not already (``torch.cuda.device`` swaps the device twice,
-    a few microseconds a launch); returns the C error code."""
-    if torch._C._cuda_getDevice() == idx:
-        return fn(args)
-    with torch.cuda.device(idx):
-        return fn(args)
 
 
 def ctrl_step_packed(params, packed_state, rpm_packed, n_substeps: int,

@@ -13,6 +13,8 @@ the vector or quaternion.
 
 import torch
 
+from ..utils.device_consts import const
+
 
 def _cross(a, b):
     a, b = torch.broadcast_tensors(a, b)
@@ -150,8 +152,7 @@ def multiply(q1, q2):
 
 
 def conjugate(q):
-    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype,
-                            device=q.device)
+    return q * const((-1.0, -1.0, -1.0, 1.0), q.dtype, q.device)
 
 
 def normalize(q):

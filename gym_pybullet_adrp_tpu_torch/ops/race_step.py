@@ -47,6 +47,7 @@ from ..utils.constants import (
     OBSTACLE_HALF_LEN, OBSTACLE_RADIUS, RAD_TO_DEG, VISIBILITY_RANGE,
 )
 from . import _build
+from ._build import launch_error
 from .race_window import (
     LANE, NOISE_CHANNELS, S_CHANNELS, WindowConsts, _check_block, recip32,
     window_consts, window_consts_struct, window_loop_plain,
@@ -726,12 +727,6 @@ def check_policy_pack(pack, C, hidden, device):
     layout, n = policy_layout(C, hidden)
     _check_block("policy_pack", pack, (n,), device)
     return layout
-
-
-def launch_error(name, err):
-    if err != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: {_build.error_string(err)}")
 
 
 def launch_geometry(kernel, N, Tb, layout=None):

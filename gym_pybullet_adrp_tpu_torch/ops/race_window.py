@@ -46,17 +46,30 @@ same side as in the JAX package.
 
 import ctypes
 import math
+import struct
 
 import numpy as np
 import torch
 
 from ..control import mellinger as mel
-from . import _build
+from ..control.commander import poly7_horner
+from ..control.mellinger import recip32
+from ._build import (
+    call_on, device_index, entry, launch_error, raw_stream, sm_count,
+)
 
 LANE = 128
 S_CHANNELS = 58
 W_CHANNELS = 57
 NOISE_CHANNELS = 7
+# threads per block of the kernel (csrc/race_window.cu)
+THREADS = 128
+# lane counts the kernel is built for
+LANES = (1, 4)
+# the C entry point's arguments packed into one buffer, ``struct
+# WindowArgs`` of csrc/race_window.cu (S, W, noise, out, consts, stream;
+# ncols; lanes): a ctypes call then converts one pointer, not eight values
+_ARGS = struct.Struct("=6Qqi4x")
 
 RAD2DEG = 180.0 / math.pi
 DEG2RAD = math.pi / 180.0
@@ -93,10 +106,12 @@ class WindowConsts(ctypes.Structure):
 
 
 def window_consts(kf, km, arm, ground_z, dt, n_ticks):
-    """Python-float constants of the window (see ``WindowConsts``)."""
+    """Python-float constants of the window (see ``WindowConsts``), as a
+    read-only dict that carries its ctypes struct: fold them once per env
+    and pass them to ``race_window`` as ``consts``."""
     kf, km, arm, ground_z, dt = (float(v) for v in (kf, km, arm, ground_z,
                                                     dt))
-    return dict(
+    return FoldedWindowConsts(dict(
         n_ticks=int(n_ticks),
         dt=dt,
         kf=kf,
@@ -111,10 +126,10 @@ def window_consts(kf, km, arm, ground_z, dt, n_ticks):
         tick_recip=recip32(1.0 / dt),
         acc=tuple(mel._ACC_LPF_COEFFS),
         gyro=tuple(mel._GYRO_LPF_COEFFS),
-    )
+    ))
 
 
-def window_consts_struct(c) -> WindowConsts:
+def _fill_struct(c) -> WindowConsts:
     out = WindowConsts()
     for name, val in c.items():
         if isinstance(val, tuple):
@@ -124,14 +139,28 @@ def window_consts_struct(c) -> WindowConsts:
     return out
 
 
+class FoldedWindowConsts(dict):
+    """``window_consts``' dict with its ctypes struct (``struct``), filled
+    once from the same values. Read-only, so the two cannot part."""
+
+    def __init__(self, values):
+        super().__init__(values)
+        self.struct = _fill_struct(self)
+
+    def _read_only(self, *args, **kwargs):
+        raise TypeError("folded window constants are read-only")
+
+    __setitem__ = __delitem__ = update = pop = popitem = clear = \
+        setdefault = _read_only
+
+
+def window_consts_struct(c) -> WindowConsts:
+    """The ctypes struct of the constants ``c``."""
+    return c.struct if isinstance(c, FoldedWindowConsts) else _fill_struct(c)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version
-
-
-def recip32(c) -> float:
-    """The float32 reciprocal of the float32 constant ``c``, as a Python
-    float: ``x * recip32(c)`` is how XLA evaluates ``x / c``."""
-    return float(np.float32(1.0) / np.float32(c))
 
 
 def _rsqrt(x):
@@ -237,20 +266,8 @@ def window_loop_plain(S, wv, c, noise_rows=None):
     def poly_eval(t_rel):
         safe_T = torch.where(duration > 0, duration, 1.0)
         s = torch.clamp(t_rel / safe_T, 0.0, 1.0)
-        outs = []
-        for ch in range(4):
-            cc = [coeffs[8 * ch + i] for i in range(8)]
-            pv = cc[7]
-            dv = 7.0 * cc[7]
-            av = 42.0 * cc[7]
-            for i in range(6, -1, -1):
-                pv = pv * s + cc[i]
-                if i >= 1:
-                    dv = dv * s + float(i) * cc[i]
-                if i >= 2:
-                    av = av * s + float(i * (i - 1)) * cc[i]
-            outs.append((pv, dv / safe_T, av / (safe_T * safe_T)))
-        return outs
+        return [poly7_horner(coeffs[8 * ch:8 * ch + 8], s, safe_T)
+                for ch in range(4)]
 
     def lpf(b0, b1, b2, a1, a2, d1, d2, x):
         d0 = x - d1 * a1 - d2 * a2
@@ -629,18 +646,34 @@ def _check_block(name, x, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def lane_count(agents: int, n_sm: int = 132) -> int:
+    """Lanes per agent, L, for a window launch of ``agents`` agents on a
+    card of ``n_sm`` SMs. An agent's 20 ticks are one long dependent
+    chain; the lanes of a group repeat it and deal out the items of a
+    tick (the Euler angles, the four motors, the four planner channels,
+    csrc/race_window.cuh), and L = 4 puts four times the warps on the
+    card. Rule: L = 4 while the 4 * agents threads fit one wave at two
+    128-thread blocks per SM (the window's ~250 registers a thread allow
+    two), else L = 1, as a second wave costs more than the lanes save.
+    On an H100: 4 up to 8448 agents, then 1."""
+    return 4 if 4 * agents <= 2 * THREADS * n_sm else 1
+
+
 def race_window(kf, km, arm, ground_z, S, W, n_ticks: int = 20,
-                dt: float = 1.0 / 500.0, noise_rows=None):
+                dt: float = 1.0 / 500.0, noise_rows=None, consts=None):
     """Run one control step's firmware window; returns the new S block.
+    ``consts``, when given, is ``window_consts`` of the same scalars,
+    folded once (the scalars are then not read).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
-    (csrc/race_window.cu, one thread per agent) on the current stream,
-    counting the launch in ``race_window.launches``. Any other device
-    raises."""
+    (csrc/race_window.cu, ``lane_count`` lanes per agent) on the current
+    stream, counting the launch in ``race_window.launches``. Any other
+    device raises."""
+    c = consts or window_consts(kf, km, arm, ground_z, dt, n_ticks)
     dev = S.device
     if dev.type == "cpu":
-        return race_window_plain(kf, km, arm, ground_z, S, W, n_ticks, dt,
-                                 noise_rows)
+        return window_loop_plain(S, unpack_window(W), c,
+                                 noise_rows=noise_rows)
     if dev.type != "cuda":
         raise ValueError(f"race_window: unsupported device {dev}")
     if S.dim() != 3 or S.shape[0] != S_CHANNELS or S.shape[2] != LANE:
@@ -650,23 +683,16 @@ def race_window(kf, km, arm, ground_z, S, W, n_ticks: int = 20,
     _check_block("W", W, (W_CHANNELS, T, LANE), dev)
     if noise_rows is not None:
         _check_block("noise_rows", noise_rows,
-                     (n_ticks, NOISE_CHANNELS, T, LANE), dev)
+                     (c["n_ticks"], NOISE_CHANNELS, T, LANE), dev)
     out = torch.empty_like(S)
-    consts = window_consts_struct(
-        window_consts(kf, km, arm, ground_z, dt, n_ticks)
-    )
-    lib = _build.library("race_window")
-    with torch.cuda.device(dev):
-        err = lib.adrp_race_window(
-            S.data_ptr(), W.data_ptr(),
-            noise_rows.data_ptr() if noise_rows is not None else None,
-            out.data_ptr(), T * LANE, ctypes.addressof(consts),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"race_window kernel launch failed: {_build.error_string(err)}"
-        )
+    idx = device_index(dev)
+    ncols = T * LANE
+    err = call_on(idx, entry("race_window"), _ARGS.pack(
+        S.data_ptr(), W.data_ptr(),
+        0 if noise_rows is None else noise_rows.data_ptr(), out.data_ptr(),
+        ctypes.addressof(window_consts_struct(c)), raw_stream(idx), ncols,
+        lane_count(ncols, sm_count(idx))))
+    launch_error("race_window", err)
     race_window.launches += 1
     return out
 

@@ -9,18 +9,27 @@ Each ``--tree`` (default: this checkout) runs in a process of its own, in
 the order given, importing the ``gym_pybullet_adrp_tpu_torch`` package
 found in DIR and building its kernels there, so a parent commit's package
 unpacked by ``git archive`` can be held against this one on the same card
-(list the trees as parent, change, change, parent). Each process prints
-one JSON line: the card's name and power limit, the ptxas report of the
-race step and rollout kernels (registers, stack frame, spills), their
-launch geometry at getting_started 4096 x 2 COMPETE, and the device ms
-per launch (CUDA events around launches queued behind a spin kernel, so
-the host's enqueue is not timed) of
+(list the trees as parent, change, change, parent). A tree written DIR@L
+runs the window kernel K3 with L lanes per agent whatever the agent
+count (a package that picks L with ``race_window.lane_count``). Each
+process prints one JSON line: the card's name and power limit, the
+ptxas report of the race window, step and rollout kernels (registers,
+stack frame, spills), the step kernels' launch geometry at
+getting_started 4096 x 2 COMPETE, and the device ms per launch (CUDA
+events around launches queued behind a spin kernel, so the host's
+enqueue is not timed) of
   K4 with the policy: getting_started 4096 envs x 1 drone, 64-64;
   K5 in policy mode: the same, K=16;
   K5 in action mode: getting_started 4096 x 1 and x 2 COMPETE, K=32;
   K4 without the policy: getting_started 4096 x 2 COMPETE and 4096 x 1,
     and the evaluation's shape, level1 128 x 1 with its disturbances;
-  K3: level1 4096 x 2 with its disturbances.
+  K3 at the --fast trainer's twogates 4096 x 1 agents, level1's 4096 x 2
+    (its disturbances) and getting_started 65536 x 1, each with the
+    window statics of random actions ("hold") and with the poly7 planner
+    on every other agent ("planner"), with the host ms per call of its
+    wrapper's enqueue beside (``host_ms``; the change's wrapper with its
+    constants folded once, ``consts``, where it takes them) and the lane
+    count picked per agent count (``k3_lanes``).
 Needs a CUDA device and nvcc; imports no JAX.
 """
 
@@ -35,7 +44,8 @@ from pathlib import Path
 N_ENVS = 4096
 
 
-RACE_KERNELS = ("race_step_kernel", "race_rollout_kernel")
+RACE_KERNELS = ("race_step_kernel", "race_rollout_kernel",
+                "race_window_kernel")
 
 
 def ptxas_entries(report, kernels=RACE_KERNELS):
@@ -111,9 +121,30 @@ def policy_pack(env, hidden=(64, 64), seed=3):
     return pack_policy_params(net.to(env.device))
 
 
-def measure():
+def k3_window(env, st, gen, planner):
+    """The W block of random FULLSTATE actions and, with ``planner``, the
+    poly7 planner on every other agent with random coefficients."""
+    import torch
+
+    dev = st.S.device
+    a = torch.rand((env.n_envs, env.N, 4), generator=gen, device=dev) * 2 - 1
+    W = env.build_W(st, env.action_rows(a)).clone()
+    if planner:
+        T = env.T
+        W[16] = ((torch.arange(T * 128, device=dev).reshape(T, 128) % 2)
+                 == 0).float()
+        W[17] = st.S[53] * env.dt
+        W[18] = 1.0 + torch.rand((T, 128), generator=gen, device=dev)
+        W[20:52] = torch.randn((32, T, 128), generator=gen, device=dev) * 0.2
+        W[20] += st.S[0]
+        W[28] += st.S[1]
+        W[36] += st.S[2]
+    return W.contiguous()
+
+
+def measure(lanes=None):
     """The JSON record of the package on ``sys.path`` (see the module
-    docstring)."""
+    docstring); ``lanes`` forces the window kernel's lane count."""
     import torch
     from gym_pybullet_adrp_tpu_torch import eval_race
     from gym_pybullet_adrp_tpu_torch.ops import (
@@ -193,16 +224,34 @@ def measure():
         env.kf, env.km, env.arm, env.ground_z, st.S, A1, st.R, st.GG, st.OO,
         st.EP, d.RST, d.RSTG, d.RSTO, noise_rows=d.noise_rows, **kw_of(env)))
 
-    # K3: level1, 4096 x 2 drones, the window statics of random actions
-    env = eval_race.make_eval_env("level1", N_ENVS, dev, seed=7, n_drones=2)
-    st = env.reset()
-    a = torch.rand((N_ENVS, 2, 4), generator=gen, device=dev) * 2 - 1
-    W = env.build_W(st, env.action_rows(a)).contiguous()
-    nz = env.step_draws().noise_rows
-    rec["ms"]["k3_level1_2drone"] = device_ms(
-        lambda: race_window.race_window(env.kf, env.km, env.arm,
-                                        env.ground_z, st.S, W, env.n_ticks,
-                                        env.dt, nz))
+    # K3 at the --fast trainer's, level1's and a 65536-agent shape
+    import inspect
+
+    if lanes is not None and hasattr(race_window, "lane_count"):
+        race_window.lane_count = lambda A, n_sm=132: int(lanes)
+    fold = "consts" in inspect.signature(race_window.race_window).parameters
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rec["host_ms"], rec["k3_lanes"] = {}, {}
+    for cfg, n_envs, nd in (("twogates", N_ENVS, 1), ("level1", N_ENVS, 2),
+                            ("getting_started", 65536, 1)):
+        env = eval_race.make_eval_env(cfg, n_envs, dev, seed=7, n_drones=nd)
+        st = env.reset()
+        A = n_envs * nd
+        nz = env.step_draws().noise_rows
+        kw = {}
+        if fold:
+            kw["consts"] = race_window.window_consts(
+                env.kf, env.km, env.arm, env.ground_z, env.dt, env.n_ticks)
+        if hasattr(race_window, "lane_count"):
+            rec["k3_lanes"][A] = race_window.lane_count(A, n_sm)
+        for label in ("hold", "planner"):
+            W = k3_window(env, st, gen, label == "planner")
+            key = f"k3_{A}_{label}"
+            rec["ms"][key], rec["host_ms"][key] = device_host_ms(
+                lambda: race_window.race_window(
+                    env.kf, env.km, env.arm, env.ground_z, st.S, W,
+                    env.n_ticks, env.dt, nz, **kw))
+        del env, st, W
     return rec
 
 
@@ -243,13 +292,15 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", action="append", default=None,
                     help="a directory holding gym_pybullet_adrp_tpu_torch/ "
-                         "(repeatable; default: this checkout)")
+                         "(repeatable; default: this checkout), or DIR@L "
+                         "to force L lanes per agent in the window kernel")
     ap.add_argument("--out", default=None, help="also write the records "
                     "here, one JSON line per tree")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("lanes", nargs="?", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(measure()), flush=True)
+        print(json.dumps(measure(args.lanes)), flush=True)
         return 0
     here = Path(__file__).resolve()
     return run_trees(here, args.tree or [str(here.parent.parent)], args.out,

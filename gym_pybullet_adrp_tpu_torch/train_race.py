@@ -1,20 +1,29 @@
-"""Race-policy PPO training on the row env, on the card.
+"""Race-policy PPO training, on the card.
 
-Counterpart of scripts/train_race.py, its ``--rowfast`` path (:202-261,
-:330-338) with the PPO set-up and loop around it (:167-190, :356-424):
-the row env (envs/race_rl_rowfast.py), the PPO learner (rl/ppo.py) and,
-with ``--fuse_policy``, the policy forward inside the race kernels: K
-steps per race_rollout launch when ``--kernel_chunk`` divides
-``--n_steps``, else one race_step launch per step. Without it the policy
-runs outside (``nn.Linear``) and race_step runs once per step.
+Counterpart of scripts/train_race.py with the PPO set-up and loop around
+it (:167-190, :356-424), on one of two envs:
+
+* the row env (default; the JAX script's ``--rowfast`` path, :202-261,
+  :330-338): envs/race_rl_rowfast.py and, with ``--fuse_policy``, the
+  policy forward inside the race kernels: K steps per race_rollout
+  launch when ``--kernel_chunk`` divides ``--n_steps``, else one
+  race_step launch per step. Without it the policy runs outside
+  (``nn.Linear``) and race_step runs once per step.
+* the general race env (``--general``; the JAX script without
+  ``--rowfast``, :192-200, :340-351): envs/race_rl.py, the commander,
+  the Mellinger firmware and the collision tests as eager tensor ops,
+  one drone per env. ``--fast`` (which implies ``--general``, as the JAX
+  script's ``--fast`` without ``--rowfast`` does) runs each step's
+  20-tick firmware window in one launch of the window kernel for all
+  envs (envs/race_fast.py).
 
 Not ported yet, and refused with an error: ``--league``,
-``--prox_penalty``, ``--obs rgb``, ``--fast`` and the general
-(non-row) race env.
+``--prox_penalty`` and ``--obs rgb``.
 
 Usage:
   python -m gym_pybullet_adrp_tpu_torch.train_race \\
       --config getting_started --n_envs 4096 --fuse_policy
+  python -m gym_pybullet_adrp_tpu_torch.train_race --fast --n_envs 4096
 """
 
 import argparse
@@ -25,6 +34,7 @@ import numpy as np
 import torch
 
 from .envs import race as race_mod
+from .envs import race_fast, race_rl
 from .envs.race_rl_rowfast import make_policy_rollout, make_row_env
 from .rl import checkpoint as ckpt
 from .rl.ppo import EnvAdapter, PPOConfig, make_ppo_core
@@ -52,18 +62,22 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
     ``ts`` (``rl.ppo.TrainState``; ``ts.params`` is the policy), the PPO
     ``cfg`` and its ``train_step``. Runs on ``device``, the card unless
     the caller asks for the CPU; writes the policy to ``out`` when
-    given."""
-    if general:
-        _not_ported("the general race env (scripts/train_race.py without "
-                    "--rowfast)")
-    if fast:
-        _not_ported("--fast")
+    given. ``general`` trains on the general race env, ``fast`` (which
+    implies it) with its window in the K3 kernel; ``env`` is then a
+    ``GeneralEnv``."""
+    general = general or fast
     if league:
         _not_ported("--league")
     if prox_penalty:
         _not_ported("--prox_penalty")
     if obs != "kin":
         _not_ported("--obs rgb")
+    if general and n_drones > 1:
+        raise ValueError("n_drones > 1 trains on the row env (self-play); "
+                         "the general env takes one drone")
+    if general and fuse_policy:
+        raise ValueError("fuse_policy runs the policy inside the row env's "
+                         "kernels; the general env runs it outside")
     device = torch.device(device)
     if device.type == "cuda":
         # the learner's matmuls in full float32 (PyTorch's default, stated)
@@ -94,31 +108,17 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
                           np.random.SeedSequence(seed).generate_state(2))
     gen = torch.Generator(device=device)
     gen.manual_seed(env_seed)
-    env = make_row_env(spec, track, n_envs, device=device, generator=gen,
-                       end_after_gate=end_after_gate,
-                       per_drone_reward=n_drones > 1,
-                       elim_penalty=elim_penalty, policy_hidden=hidden)
-    B, N, C = n_envs, n_drones, spec.obs_size
-
-    def batched_reset():
-        st = env.reset()
-        return st, env.initial_obs(st).reshape(ppo_rows, C)
-
-    def step_fn(env_state, action):
-        act = action.reshape(B, N, 4) if N > 1 else action
-        env_state, o, reward, done = env.step(env_state, act)[:4]
-        if N == 1:
-            return env_state, o, reward, done
-        return (env_state, o.reshape(B * N, C), reward.reshape(B * N),
-                done.repeat_interleave(N))
-
-    adapter = EnvAdapter(batched_reset=batched_reset, step=step_fn,
-                         obs_dim=C, act_dim=4)
     rollout_override = None
-    if fuse_policy:
-        b_reset, rollout_override, fused_step = make_policy_rollout(
-            env, n_steps, kernel_chunk=kernel_chunk)
-        adapter = adapter._replace(batched_reset=b_reset, step=fused_step)
+    if general:
+        env = GeneralEnv(spec, track, n_envs, device, gen, end_after_gate,
+                         fast)
+        adapter = EnvAdapter(batched_reset=env.reset, step=env.step,
+                             obs_dim=spec.obs_size, act_dim=4)
+    else:
+        env, adapter, rollout_override = _row_adapter(
+            spec, track, n_envs, n_steps, device, gen, end_after_gate,
+            elim_penalty, hidden, fuse_policy, kernel_chunk)
+    C = spec.obs_size
 
     init_fn, train_step, _ = make_ppo_core(
         cfg, adapter, hidden=hidden, rollout_override=rollout_override,
@@ -156,6 +156,74 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
         print("saved policy:", out, flush=True)
     return {"metrics": hist, "times": times, "env": env, "ts": ts,
             "cfg": cfg, "train_step": train_step}
+
+
+def _row_adapter(spec, track, n_envs, n_steps, device, gen, end_after_gate,
+                 elim_penalty, hidden, fuse_policy, kernel_chunk):
+    """The row env, its PPO adapter and, with ``fuse_policy``, the policy
+    rollout's override."""
+    N = spec.num_drones
+    env = make_row_env(spec, track, n_envs, device=device, generator=gen,
+                       end_after_gate=end_after_gate,
+                       per_drone_reward=N > 1,
+                       elim_penalty=elim_penalty, policy_hidden=hidden)
+    B, C = n_envs, spec.obs_size
+
+    def batched_reset():
+        st = env.reset()
+        return st, env.initial_obs(st).reshape(B * N, C)
+
+    def step_fn(env_state, action):
+        act = action.reshape(B, N, 4) if N > 1 else action
+        env_state, o, reward, done = env.step(env_state, act)[:4]
+        if N == 1:
+            return env_state, o, reward, done
+        return (env_state, o.reshape(B * N, C), reward.reshape(B * N),
+                done.repeat_interleave(N))
+
+    adapter = EnvAdapter(batched_reset=batched_reset, step=step_fn,
+                         obs_dim=C, act_dim=4)
+    override = None
+    if fuse_policy:
+        b_reset, override, fused_step = make_policy_rollout(
+            env, n_steps, kernel_chunk=kernel_chunk)
+        adapter = adapter._replace(batched_reset=b_reset, step=fused_step)
+    return env, adapter, override
+
+
+class GeneralEnv:
+    """The general race env of ``train``'s ``general`` path: B envs of one
+    drone (envs/race_rl.py), drawing its resets and disturbances from
+    ``generator``. ``fast`` runs the window in the K3 kernel, with its
+    constants folded once here. ``reset()`` and ``step(state, action)``
+    are the PPO adapter's (scripts/train_race.py:192-200, :340-351)."""
+
+    def __init__(self, spec, track, n_envs, device, generator,
+                 end_after_gate=0, fast=False):
+        if fast and not race_fast.supports(spec):
+            raise ValueError("fast: PYB physics, CF2X drones and a config "
+                             "without disturbances only")
+        self.spec, self.n_envs = spec, n_envs
+        self.device = torch.device(device)
+        self.track = race_mod.track_tensors(track, self.device)
+        self.generator = generator
+        self.end_after_gate = end_after_gate
+        self.fast = fast
+        self.consts = race_fast.window_consts_of(spec) if fast else None
+
+    def reset(self):
+        st = race_rl.rl_race_reset(self.spec, self.track, self.n_envs,
+                                   generator=self.generator,
+                                   device=self.device)
+        obs = race_mod.compute_obs(self.spec, self.track, st.race)
+        return st, obs.reshape(self.n_envs, -1)
+
+    def step(self, state, action):
+        state, obs, reward, term, trunc = race_rl.batched_rl_race_step(
+            self.spec, self.track, state, action.reshape(self.n_envs, 1, 4),
+            generator=self.generator, end_after_gate=self.end_after_gate,
+            fast=self.fast, consts=self.consts)
+        return state, obs.reshape(self.n_envs, -1), reward, term | trunc
 
 
 def main(argv=None):
@@ -199,8 +267,12 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--general", action="store_true",
-                    help="the general race env: not ported yet")
-    ap.add_argument("--fast", action="store_true", help="not ported yet")
+                    help="train on the general race env (commander, "
+                         "firmware and collisions as tensor ops; one "
+                         "drone) instead of the row env")
+    ap.add_argument("--fast", action="store_true",
+                    help="the general race env with each step's firmware "
+                         "window in the window kernel (implies --general)")
     ap.add_argument("--league", default=None, help="not ported yet")
     ap.add_argument("--prox_penalty", type=float, default=0.0,
                     help="not ported yet")

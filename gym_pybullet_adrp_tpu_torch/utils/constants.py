@@ -19,8 +19,15 @@ VISIBILITY_RANGE = 0.45
 # crazyflie firmware
 FIRMWARE_FREQ = 500
 CTRL_FREQ = 25
+FIRMWARE_DT = 1.0 / 500
 GYRO_LPF_CUTOFF_FREQ = 80.0
 ACCEL_LPF_CUTOFF_FREQ = 30.0
+MIN_PWM = 20000.0
+MAX_PWM = 65535.0
+PWM2RPM_SCALE = 0.2685
+PWM2RPM_CONST = 4070.3
+SENSOR_DELAY = 0
+SUPPLY_VOLTAGE = 3.0
 
 # race gate geometry, from the portal/low_portal/obstacle URDFs
 GATE_Z_TALL = 1.0

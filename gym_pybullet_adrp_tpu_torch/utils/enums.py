@@ -50,3 +50,19 @@ class ObservationType(Enum):
 
     KIN = "kin"
     RGB = "rgb"
+
+
+class Command(IntEnum):
+    """High-level commander commands (control/commander.py)."""
+
+    NONE = 0
+    FULLSTATE = 1
+    TAKEOFF = 2
+    TAKEOFFYAW = 3
+    TAKEOFFVEL = 4
+    LAND = 5
+    LANDYAW = 6
+    LANDVEL = 7
+    STOP = 8
+    GOTO = 9
+    NOTIFY = 10

@@ -146,3 +146,182 @@ def check_blocks(N, G, O, envs, got, ref, tag):
     # every env, stable or not, stays close in position
     assert np.abs(np.take(S, [0, 1, 2], axis=-3)
                   - np.take(rS, [0, 1, 2], axis=-3)).max() <= 2e-2, tag
+
+
+# ---------------------------------------------------------------------------
+# the general race env: JAX pytrees <-> the port's NamedTuples
+
+
+def to_port(x, like):
+    """A JAX pytree (vmapped: leaves with the batch axis first) as the
+    port's tree of ``like``'s structure, field by field by name (the
+    JAX package's extra fields, such as the PRNG key, are left out). A
+    leaf with fewer axes than ``like``'s (a drone param shared by the
+    drones of an env) is broadcast to ``like``'s shape."""
+    import torch
+
+    if hasattr(like, "_fields"):
+        return type(like)(*(to_port(getattr(x, f), getattr(like, f))
+                            for f in like._fields))
+    a = np.asarray(x)
+    if a.ndim < like.dim():
+        a = a.reshape(a.shape[:1] + (1,) * (like.dim() - a.ndim)
+                      + a.shape[1:])
+    a = np.broadcast_to(a, tuple(like.shape))
+    return torch.from_numpy(np.array(a)).to(like.dtype)
+
+
+def leaves(tree, prefix=""):
+    """[(dotted name, numpy array)] of a NamedTuple tree of tensors or
+    arrays."""
+    if tree is None:
+        return []
+    if hasattr(tree, "_fields"):
+        out = []
+        for f in tree._fields:
+            out += leaves(getattr(tree, f), f"{prefix}.{f}")
+        return out
+    return [(prefix, np.asarray(tree))]
+
+
+# tolerances of the general race env's comparisons (the test files say
+# why each is what it is)
+RTOL, ATOL = 1e-5, 1e-6
+CTL_ATOL = 1e-5 * 32000.0   # firmware commands: 1e-5 of their range
+# gyro biquad, deg/s: an ulp of a pi-sized Euler angle (each package's
+# atan2/asin) differenced over one 0.002 s tick is 6.8e-3 deg/s
+GYRO_ATOL = 1e-2
+
+
+def tensor(x):
+    import torch
+
+    return torch.from_numpy(np.array(x))
+
+
+def assert_trees(got, ref, tag, atol=None, rows=None):
+    """Leaf by leaf: discrete leaves equal, float leaves at RTOL and ATOL
+    or the leaf's entry in ``atol`` (by dotted-name suffix); ``rows``
+    (B,) bool keeps those envs only (every leaf has the batch first)."""
+    for (name, g), (rname, r) in zip(leaves(got), leaves(ref)):
+        assert name == rname, (name, rname)
+        r = np.broadcast_to(r, g.shape)
+        if rows is not None:
+            g, r = g[rows], r[rows]
+        if g.dtype.kind in "biu":
+            np.testing.assert_array_equal(g, r, err_msg=f"{tag}{name}")
+            continue
+        a = next((v for k, v in (atol or {}).items() if name.endswith(k)),
+                 ATOL)
+        np.testing.assert_allclose(g, r, rtol=RTOL, atol=a,
+                                   err_msg=f"{tag}{name}")
+
+
+def race_specs(config, n_drones, compete=False):
+    """(port spec, port track, JAX spec, JAX track) of a config."""
+    import jax.numpy as jnp
+
+    from gym_pybullet_adrp_tpu.envs import race as jrace
+    from gym_pybullet_adrp_tpu.utils import config as jconfig
+    from gym_pybullet_adrp_tpu.utils import enums as jenums
+    from gym_pybullet_adrp_tpu_torch.envs import race as prace
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+    from gym_pybullet_adrp_tpu_torch.utils.enums import RaceMode
+
+    cfg_p, cfg_j = load_config(config), jconfig.load_config(config)
+    mode = RaceMode.COMPETE if compete else RaceMode.COMPARE
+    pspec = prace.RaceSpec.from_config(cfg_p, n_drones, mode)
+    jspec = jrace.RaceSpec.from_config(cfg_j, n_drones,
+                                       jenums.RaceMode(int(mode)))
+    return (pspec, prace.track_from_config(cfg_p, n_drones), jspec,
+            jrace.track_from_config(cfg_j, n_drones, dtype=jnp.float32))
+
+
+def jax_reset_draws(spec, keys):
+    """The draws ``race.race_reset`` makes from each of ``keys``,
+    computed by JAX as it computes them, as the port's ``ResetDraws``."""
+    import jax
+    import jax.numpy as jnp
+
+    from gym_pybullet_adrp_tpu_torch.envs.race import ResetDraws
+
+    def one(key):
+        kg, ko, ki, kp, kr, _ = jax.random.split(key, 6)
+        km, kj = jax.random.split(ki)
+        f = jnp.float32
+        return ResetDraws(
+            gate_off=jax.random.uniform(kg, (spec.num_gates, 3), f,
+                                        *spec.rg_gates),
+            obst_off=jax.random.uniform(ko, (spec.num_obstacles, 2), f,
+                                        *spec.rg_obstacles),
+            mass_off=jax.random.uniform(km, (spec.num_drones,), f,
+                                        *spec.ri_mass),
+            j_u=jax.random.uniform(kj, (spec.num_drones, 3), f),
+            pos_u=jax.random.uniform(kp, (spec.num_drones, 3), f),
+            rot_u=jax.random.uniform(kr, (spec.num_drones, 3), f))
+
+    return ResetDraws(*(tensor(np.asarray(x))
+                        for x in jax.vmap(one)(keys)))
+
+
+def mell_stable(mell, n_ticks=20):
+    """(B,) bool: envs all of whose drones' tick gating over ``n_ticks``
+    ticks is the same under either rounding (``gating_stable`` on the
+    firmware state of the general env, (B, N) leaves)."""
+    tick = np.asarray(mell.tick, dtype=np.float32)
+    S = np.zeros((58,) + tick.shape, np.float32)
+    S[53] = tick
+    S[54] = np.asarray(mell.last_pos_pid_call)
+    S[55] = np.asarray(mell.last_att_pid_call)
+    return gating_stable(S, n_ticks).all(axis=-1)
+
+
+def poly_term_scale(coeffs, t_rel, T_):
+    """Per channel (..., 4), the sums of the magnitudes of the terms
+    ``eval_poly7`` adds up for position, velocity and acceleration: the
+    scale of their rounding, which differs between the port's Horner
+    form and the JAX package's powers."""
+    safe_T = np.where(T_ > 0, T_, 1.0)[..., None]
+    s = np.clip(t_rel[..., None] / safe_T, 0.0, 1.0)[..., None]
+    i = np.arange(8)
+    c = np.abs(np.asarray(coeffs, dtype=np.float64))
+    p = (c * s ** i).sum(-1)
+    v = (c * i * s ** np.maximum(i - 1, 0)).sum(-1) / safe_T
+    a = (c * i * (i - 1) * s ** np.maximum(i - 2, 0)).sum(-1) / safe_T ** 2
+    return p, v, a
+
+
+def race_S(state):
+    """The window's S block (numpy) of a general-env race state."""
+    from gym_pybullet_adrp_tpu_torch.envs.race_fast import pack_blocks
+
+    B, n = state.rpms.shape[:2]
+    return pack_blocks(state, B * n)[0].numpy()
+
+
+def assert_race_S(got, ref, stable, tag):
+    """S blocks at one window's tolerances (``S_ABS``; rpms rtol 3e-4;
+    tick and gating rows equal) on the ``stable`` (T, 128) agents."""
+    for chans, tol in S_ABS:
+        err = np.abs(got[chans][:, stable] - ref[chans][:, stable]).max()
+        assert err <= tol, f"{tag} S {chans}: {err} > {tol}"
+    rpm = list(range(13, 21))
+    rel = (np.abs(got[rpm][:, stable] - ref[rpm][:, stable])
+           / np.maximum(np.abs(ref[rpm][:, stable]), 1))
+    assert rel.max() <= 3e-4, tag
+    gating = list(range(53, 58))
+    np.testing.assert_array_equal(got[gating][:, stable],
+                                  ref[gating][:, stable], err_msg=tag)
+
+
+def assert_race_obs(obs, ref, G, O):
+    """Race obs (..., C) at ``check_blocks``' tolerances: positions and
+    velocities atol 1e-5, angles and world rates 1e-3, the track channels,
+    flags and gate id equal, opponent channels 1e-3."""
+    track = list(range(12, 12 + 5 * G + 4 * O + 1))
+    for chans, tol in (([0, 1, 2, 6, 7, 8], 1e-5),
+                       ([3, 4, 5, 9, 10, 11], 1e-3), (track, 0.0),
+                       (list(range(track[-1] + 1, obs.shape[-1])), 1e-3)):
+        if chans:
+            err = np.abs(obs[..., chans] - ref[..., chans]).max()
+            assert err <= tol, (chans, err)

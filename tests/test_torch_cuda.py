@@ -11,7 +11,9 @@ Both sides round every + - * / and sqrt alike (kernels built with
 PyTorch's CUDA cos/sin give, so K4 with and without the policy is held
 equal to its plain version bit for bit, every output, whatever the lane
 group that runs an agent's window (race_step.cuh); the window kernel K3
-is held with atol 1e-4 on S (its planner's per-tick cosf/sinf). K5 runs
+at level1's 256 x 2 is held with atol 1e-4 on S (its planner's per-tick
+cosf/sinf), and bit for bit on every lane group at the general
+trainer's, level1's and 65536 agents. K5 runs
 the same tile step as K4, so K5 and K launches of K4 are held equal bit
 for bit.
 """
@@ -58,6 +60,86 @@ def test_race_window_kernel_matches_plain(dev, noise):
     assert race_window.race_window.launches == before + 1
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-6)
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 4], ids=["picked", "L1", "L4"])
+@pytest.mark.parametrize("cfg,n_envs,n_drones", [
+    ("twogates", 4096, 1), ("level1", 4096, 2),
+    ("getting_started", 65536, 1)], ids=["4096", "8192", "65536"])
+def test_race_window_lane_groups_match_plain(dev, cfg, n_envs, n_drones,
+                                             lanes, monkeypatch):
+    """K3 on a lane group of L = 1 or 4 per agent equals its plain version
+    bit for bit, with and without the planner and noise, at the general
+    trainer's (4096 x 1), level1's (8192) and 65536 agents."""
+    from gym_pybullet_adrp_tpu_torch.race_kernel_times import k3_window
+
+    env = eval_race.make_eval_env(cfg, n_envs, dev, seed=3,
+                                  n_drones=n_drones)
+    st = env.reset()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    shape = (env.n_ticks, 3, env.T, 128)
+    nz = torch.cat([torch.rand(shape, generator=gen, device=dev) * 0.2 - 0.1,
+                    torch.randn((env.n_ticks, 4, env.T, 128), generator=gen,
+                                device=dev) * 0.001], dim=1).contiguous()
+    if lanes is not None:
+        monkeypatch.setattr(race_window, "lane_count",
+                            lambda a, n_sm=132: lanes)
+    c = race_window.window_consts(env.kf, env.km, env.arm, env.ground_z,
+                                  env.dt, env.n_ticks)
+    for planner in (False, True):
+        W = k3_window(env, st, gen, planner)
+        for noise in (None, nz):
+            got = race_window.race_window(env.kf, env.km, env.arm,
+                                          env.ground_z, st.S, W, env.n_ticks,
+                                          env.dt, noise, consts=c)
+            ref = race_window.race_window_plain(
+                env.kf, env.km, env.arm, env.ground_z, st.S, W, env.n_ticks,
+                env.dt, noise)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all()
+            assert torch.equal(got, ref), (planner, noise is not None)
+
+
+def test_general_fast_path_on_the_card(dev):
+    """The general env's K3 route on the card: one launch per step for all
+    agents, in closed loop within tests/test_pallas_race.py's bounds of
+    the eager race_step, and the --fast trainer at 64 launches an
+    iteration."""
+    from gym_pybullet_adrp_tpu_torch import train_race
+    from gym_pybullet_adrp_tpu_torch.control import commander as pcmd
+    from gym_pybullet_adrp_tpu_torch.envs import race as prace
+    from gym_pybullet_adrp_tpu_torch.envs import race_fast as pfast
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+    from gym_pybullet_adrp_tpu_torch.utils.enums import Command, RaceMode
+
+    cfg = load_config("getting_started")
+    spec = prace.RaceSpec.from_config(cfg, 2, RaceMode.COMPARE)
+    track = prace.track_tensors(prace.track_from_config(cfg, 2), dev)
+    B = 256
+    s_ref = prace.race_reset(spec, track, B, device=dev)
+    s_fast = prace.race_reset(spec, track, B, device=dev)
+    seq = ([(Command.TAKEOFF, (0.3, 1.0))] + [(Command.NONE, ())] * 12
+           + [(Command.FULLSTATE, ([0.5, 0.5, 0.5], [0, 0, 0], [0, 0, 0],
+                                   0.1, [0, 0, 0], 0.6))] * 5)
+    before = race_window.race_window.launches
+    for cmd, args in seq:
+        cid, vec = pcmd.pack_command(cmd, args)
+        ids = torch.full((B, 2), cid, dtype=torch.int32, device=dev)
+        arg = torch.as_tensor(vec, device=dev).expand(B, 2, -1)
+        s_ref = prace.race_step(spec, track, s_ref, ids, arg)[0]
+        s_fast = pfast.batched_race_step_fast(spec, track, s_fast, ids,
+                                              arg)[0]
+    assert race_window.race_window.launches == before + len(seq)
+    assert float((s_ref.phys.pos - s_fast.phys.pos).abs().max()) < 0.05
+    assert torch.equal(s_ref.current_gate, s_fast.current_gate)
+    z = s_fast.phys.pos[:, 0, 2]
+    assert bool(((0.12 < z) & (z < 0.8)).all())
+    before = race_window.race_window.launches
+    res = train_race.train(config="twogates", n_envs=1024, n_steps=64,
+                           iters=2, fast=True, device=dev, log_every=0)
+    assert race_window.race_window.launches == before + 2 * 64
+    assert all(torch.isfinite(torch.tensor(m["loss"]))
+               for m in res["metrics"])
 
 
 @pytest.mark.parametrize("cfg,n_drones,n_envs", [
