@@ -20,9 +20,13 @@ calibration. Phase 16 trains hover PPO through the control-step kernel
 and through the RL hover env. Phase 17 brings up the general race env:
 the window kernel against its plain version at every lane count it
 runs, its route (envs/race_fast.py) against the eager step in closed
-loop, and the general trainer with and without ``--fast``. Every phase
-prints its lines; any failed phase exits non-zero without the final
-result line.
+loop, and the general trainer with and without ``--fast``. Phases 18-22
+drive the surfaces users call: the league trainer (the league study's
+command), a whole-state checkpoint resumed against an unbroken run,
+``TorchRaceVectorEnv`` against the row env it runs on, ``sim.py`` with
+the scripted and a learned agent, and the flagship level3_mastery
+artifact at the reference's floors. Every phase prints its lines; any
+failed phase exits non-zero without the final result line.
 
 Usage (needs one CUDA device and nvcc; no JAX):
   python3 chip_smoke.py [--out DIR]
@@ -1657,6 +1661,327 @@ def phase17(dev, gen, gpu, eval_race, race_window, kernels, plain, totals,
     return out
 
 
+# ---------------------------------------------------------------------------
+# 18-22: the league trainer, whole-state checkpoints, the race vector env,
+# sim.py and the flagship artifact (V1)
+
+def league_env(dev, n_envs, seed=0):
+    """The row env train_race.train builds for phase 18's league command:
+    level3, 4 drones COMPETE, end_after_gate 0, elim_penalty 3, per-drone
+    reward, telemetry off, its generator seeded as ``seed``'s env seed."""
+    import numpy as np
+    from gym_pybullet_adrp_tpu_torch.envs import race as race_mod
+    from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import make_row_env
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+    from gym_pybullet_adrp_tpu_torch.utils.enums import Physics, RaceMode
+
+    cfg = load_config("level3")
+    spec = race_mod.RaceSpec.from_config(cfg, 4, RaceMode.COMPETE,
+                                         Physics.PYB)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(np.random.SeedSequence(seed).generate_state(2)[0]))
+    return make_row_env(spec, race_mod.track_from_config(cfg, 4), n_envs,
+                        device=dev, generator=gen, end_after_gate=0,
+                        per_drone_reward=True, elim_penalty=3.0)
+
+
+LEAGUE_POOL = ("results/level3_mastery.msgpack",
+               "results/seedsweep/best.msgpack",
+               "results/captrain/w64_s4.msgpack",
+               "results/level3_selfplay.msgpack")
+
+
+def phase18(dev, gpu, kernels, plain, totals, n_envs=1024, iters=3):
+    """The league study's command (results/league/run_league.sh: level3,
+    4 drones COMPETE, 1024 envs x 64 steps, lr 1e-4 with decay,
+    elim_penalty 3, the four-policy pool, warm start from level3_mastery)
+    for ``iters`` iterations with league_refresh 1 and prox_penalty 0.1:
+    a finite loss, 64 race_step launches an iteration (the opponents'
+    forward between them), slot 0 equal to the learner after each
+    refresh."""
+    from gym_pybullet_adrp_tpu_torch import train_race
+
+    with plain, LaunchCount(kernels, totals) as la:
+        t0 = time.perf_counter()
+        res = train_race.train(
+            config="level3", n_envs=n_envs, n_steps=64, iters=iters,
+            end_after_gate=0, lr=1e-4, lr_decay=True, elim_penalty=3.0,
+            n_drones=4, compete=True,
+            league=",".join(str(REPO / p) for p in LEAGUE_POOL),
+            league_refresh=1, prox_penalty=0.1,
+            init=str(REPO / "results/level3_mastery.msgpack"), device=dev,
+            log_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+    m = res["metrics"]
+    check(all(math.isfinite(x["loss"]) for x in m), "league: a loss")
+    check(la["race_step_fused"] == 64 * iters
+          and la["race_step_fused[policy]"] == 0 and la["race_rollout"] == 0,
+          f"league: launches {dict(la)}, not 64 race_step an iteration")
+    ts = res["ts"]
+    pool = ts.env_state.pool
+    layers = list(ts.params.pi) + [ts.params.pi_out]
+    check(all(torch.equal(pool.weight[i][0], lay.weight.T)
+              and torch.equal(pool.bias[i][0, 0], lay.bias)
+              for i, lay in enumerate(layers)),
+          "league: slot 0 is not the learner after the refresh")
+    steady = res["times"][1:]
+    phase_ms = {k: 1e3 * sum(t[k] for t in steady) / len(steady)
+                for k in steady[0]}
+    rate = n_envs * 4 * 64 / (phase_ms["iteration"] / 1e3)
+    print(f"[18] league (level3, 4 drones COMPETE, {n_envs} envs x 64 "
+          f"steps, pool of {len(LEAGUE_POOL)}, refresh 1, prox 0.1, "
+          f"{iters} iterations) in {wall:.1f} s: launches {dict(la)} "
+          f"({la['race_step_fused'] // iters} race_step an iteration); "
+          f"losses {[round(x['loss'], 5) for x in m]}; slot 0 == learner; "
+          f"ms per iteration (2-{iters}): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in phase_ms.items())
+          + f"; {rate:.6g} env-steps/s (drone-steps, all 4 drones); "
+          f"on {gpu}", flush=True)
+    return {"phase_ms": phase_ms, "env_steps_per_sec": rate,
+            "launches": dict(la), "losses": [x["loss"] for x in m]}
+
+
+def _tree_eq(a, b):
+    """(equal by torch.equal, max abs difference) of two train states'
+    leaves: params, Adam moments, env state, bookkeeping."""
+    from gym_pybullet_adrp_tpu_torch.rl import checkpoint as ckpt
+
+    la, lb = ckpt._flatten(a, []), ckpt._flatten(b, [])
+    worst, ok = 0.0, len(la) == len(lb)
+    for x, y in zip(la, lb):
+        pairs = ([(x[k], y[k]) for k in x] if isinstance(x, dict)
+                 else [(x, y)] if isinstance(x, torch.Tensor) else [])
+        for p, q in pairs:
+            ok &= torch.equal(p, q)
+            if p.is_floating_point() and p.numel():
+                worst = max(worst, float((p - q).abs().max()))
+    return ok, worst
+
+
+def phase19(dev, gpu, kernels, plain, totals, n_envs=4096):
+    """Whole-state checkpoint on the card: the row trainer (getting_started
+    4096 x 64) for 2 iterations unbroken, twice, which must agree by
+    torch.equal; then 1 iteration, save, restore into a fresh TrainState,
+    1 more, equal to the unbroken run by torch.equal (parameters, Adam
+    moments, env state, metrics)."""
+    from gym_pybullet_adrp_tpu_torch import train_race
+    from gym_pybullet_adrp_tpu_torch.rl import checkpoint as ckpt
+
+    kw = dict(config="getting_started", n_envs=n_envs, n_steps=64,
+              device=dev, log_every=0)
+    with plain, LaunchCount(kernels, totals) as la:
+        runs = [train_race.train(iters=2, **kw) for _ in range(2)]
+        first = train_race.train(iters=1, **kw)
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            path = ckpt.save_checkpoint(tmp, first["ts"], 1)
+            t_save = time.perf_counter() - t0
+            size = sum(f.stat().st_size for f in path.iterdir())
+            fresh = train_race.train(iters=0, **kw)
+            t0 = time.perf_counter()
+            ts, step = ckpt.restore_checkpoint(tmp, fresh["ts"], device=dev)
+            t_restore = time.perf_counter() - t0
+        ts, m = fresh["train_step"](ts)
+        torch.cuda.synchronize()
+    check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+    check(la["race_step_fused"] == 64 * 6, f"checkpoint: launches {dict(la)}")
+    def same_metrics(a, b):     # NaN where no episode ended
+        return all(x == y or (math.isnan(x) and math.isnan(y))
+                   for x, y in zip(a.values(), b.values()))
+
+    same, d_unbroken = _tree_eq(runs[0]["ts"], runs[1]["ts"])
+    same &= all(same_metrics(a, b) for a, b in zip(runs[0]["metrics"],
+                                                    runs[1]["metrics"]))
+    ok, d = _tree_eq(runs[0]["ts"], ts)
+    m = {k: float(v) for k, v in m.items()}
+    ok &= same_metrics(m, runs[0]["metrics"][-1])
+    print(f"[19] checkpoint, getting_started {n_envs} x 64: two unbroken "
+          f"2-iteration runs {'equal bit for bit' if same else 'differ'} "
+          f"(max abs {d_unbroken:.3g}); 1 iteration, save ({size} B, "
+          f"{t_save * 1e3:.4g} ms), restore into a fresh TrainState "
+          f"({t_restore * 1e3:.4g} ms), 1 more: "
+          f"{'equal' if ok else 'not equal'} to the unbroken run by "
+          f"torch.equal (params, Adam moments, env state, metrics; max abs "
+          f"{d:.3g}); launches {dict(la)}; on {gpu}", flush=True)
+    check(same, f"two unbroken runs differ on the card ({d_unbroken})")
+    check(ok, f"checkpoint resume differs from the unbroken run ({d})")
+    return {"unbroken_equal": same, "resume_max_abs": d, "bytes": size,
+            "save_ms": t_save * 1e3, "restore_ms": t_restore * 1e3}
+
+
+def phase20(dev, gpu, kernels, plain, totals, n_envs=4096, steps=256):
+    """TorchRaceVectorEnv, fused backend (getting_started, 4096 envs, 2
+    drones COMPETE), 256 steps of actions drawn on the card from a seeded
+    generator: one race_step launch a step, one download a step, and its
+    obs, rewards, dones and telemetry equal (torch.equal, after the
+    download) to a direct make_row_env(..., telemetry=True) run from the
+    same seed."""
+    import numpy as np
+
+    from gym_pybullet_adrp_tpu_torch.envs import race as prace
+    from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import make_row_env
+    from gym_pybullet_adrp_tpu_torch.envs.race_vector import (
+        TorchRaceVectorEnv,
+    )
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+    from gym_pybullet_adrp_tpu_torch.utils.enums import RaceMode
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    acts = torch.rand((steps, n_envs, 2, 4), generator=gen, device=dev) * 2 - 1
+    acts_np = acts.cpu().numpy()
+    venv = TorchRaceVectorEnv(n_envs, "getting_started", num_drones=2,
+                              device=dev)
+    check(venv.fused_backend, "the vector env did not take the fused backend")
+    venv.reset(seed=5)
+    out, downloads = [], []
+    cpu = torch.Tensor.cpu
+
+    def counted(t, *a, **k):
+        downloads.append(1)
+        return cpu(t, *a, **k)
+
+    with plain, LaunchCount(kernels, totals) as la:
+        torch.Tensor.cpu = counted
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                out.append(venv.step(acts_np[i]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.Tensor.cpu = cpu
+    check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+    check(la["race_step_fused"] == steps and sum(la.values()) == steps,
+          f"vector env: launches {dict(la)} in {steps} steps")
+    check(len(downloads) == steps, f"{len(downloads)} downloads")
+    # the direct row env from the same seed
+    cfg = load_config("getting_started")
+    spec = prace.RaceSpec.from_config(cfg, 2, RaceMode.COMPETE)
+    g2 = torch.Generator(device=dev).manual_seed(5)
+    env = make_row_env(spec, prace.track_from_config(cfg, 2), n_envs,
+                       device=dev, generator=g2, telemetry=True,
+                       per_drone_reward=True)
+    st = env.reset()
+    for i in range(steps):
+        st, obs, rew, done, info = env.step(st, acts[i])
+        o, r, te, tr, inf = out[i]
+        ref = {"obs": obs, "reward": rew, "done": done,
+               "terminated": info["terminated"],
+               "current_gate": info["current_gate"].float(),
+               "eliminated": info["eliminated"] > 0.5,
+               "finished": info["finished"] > 0.5,
+               "ep_steps": info["ep_steps"]}
+        got = {"obs": o, "reward": r, "done": te | tr, "terminated": te,
+               "current_gate": inf["current_gate"],
+               "eliminated": inf["eliminated"], "finished": inf["finished"],
+               "ep_steps": inf["ep_steps"]}
+        for k, v in ref.items():
+            g = torch.from_numpy(np.ascontiguousarray(got[k])).to(dev)
+            check(torch.equal(g, v.to(g.dtype)),
+                  f"vector env step {i}: {k} differs from the row env's")
+    ms = wall / steps * 1e3
+    rate = n_envs * steps / wall
+    n_done = int(sum((o[2] | o[3]).sum() for o in out))
+    print(f"[20] TorchRaceVectorEnv (fused, getting_started {n_envs} x 2 "
+          f"drones COMPETE, {steps} steps of seeded actions): "
+          f"{la['race_step_fused']} race_step launches, {len(downloads)} "
+          f"downloads; obs, rewards, dones and telemetry equal to the row "
+          f"env's (torch.equal; {n_done} env episodes ended); "
+          f"{ms:.4g} ms a step, {rate:.6g} env-steps/s; on {gpu}",
+          flush=True)
+    return {"ms_per_step": ms, "env_steps_per_sec": rate,
+            "launches": dict(la), "episodes_ended": n_done}
+
+
+def phase21(dev, gpu, kernels, plain, totals):
+    """sim.py on the card: simulate("getting_started", "hardcoded",
+    n_runs=1, n_drones=2) (both drones through all 4 gates, finished: the
+    flagship check), then the port's rl_twogates agent to gate 2 within
+    250 steps. The eager general step: no kernel launches."""
+    import contextlib
+    import io
+
+    from gym_pybullet_adrp_tpu_torch import sim
+    from gym_pybullet_adrp_tpu_torch.envs.race import MultiRaceAviary
+    from gym_pybullet_adrp_tpu_torch.utils.utils import load_controller
+
+    buf = io.StringIO()
+    with plain, LaunchCount(kernels, totals) as la:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            times = sim.simulate("getting_started", "hardcoded", n_runs=1,
+                                 n_drones=2, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    line = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("[run")][0]
+    n_steps = round(times[0] * 25) + 1
+    ms = wall / n_steps * 1e3
+    print(f"[21] sim.simulate(getting_started, hardcoded, n_drones=2) on "
+          f"the card: {line!r}; {wall:.1f} s for {n_steps} env steps = "
+          f"{ms:.4g} ms an env step (eager 20-tick step, B = 1; launches "
+          f"{dict(la)}); on {gpu}", flush=True)
+    check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+    check("gates [4 4]" in line and "finished [ True  True]" in line,
+          f"sim: not both drones through 4 gates: {line}")
+
+    env = MultiRaceAviary("twogates", num_drones=1, device=dev)
+    obs, info = env.reset()
+    agent = load_controller("rl_twogates")(0, obs[0],
+                                           dict(info, device=str(dev)))
+    t0 = time.perf_counter()
+    for i in range(250):
+        a = agent.predict(obs[0], ep_time=i / env.CTRL_FREQ)
+        obs, _, te, tr, _ = env.step([a])
+        if int(env.current_gate[0]) >= 2 or te or tr:
+            break
+    t_tg = time.perf_counter() - t0
+    gate = int(env.current_gate[0])
+    print(f"[21] rl_twogates on twogates: gate {gate} after {i + 1} steps "
+          f"({t_tg:.1f} s)", flush=True)
+    check(gate >= 2, f"rl_twogates reached gate {gate}, not 2")
+    return {"line": line, "episode_time": times[0], "wall_s": wall,
+            "ms_per_env_step": ms, "twogates_steps": i + 1,
+            "twogates_gate": gate}
+
+
+# the flagship artifact's floors (tests/test_learned_racing.py): across
+# float realizations (:139-164, asserted) and on its training platform
+# (:167-216, printed)
+V1_CROSS = {"per_drone_completion_rate": 0.15, "mean_gates": 1.2}
+V1_PLATFORM = {"per_drone_completion_rate": 0.25, "completion_rate": 0.05,
+               "mean_gates": 2.5}
+
+
+def phase22(dev, gpu, eval_race, kernels, plain, totals):
+    """V1: evaluate results/level3_mastery.msgpack on level3, 128 envs x 4
+    drones COMPETE, through race_step; the cross-platform floors must
+    hold; the platform floors are printed."""
+    with plain, LaunchCount(kernels, totals) as la:
+        t0 = time.perf_counter()
+        out = eval_race.evaluate(str(REPO / "results/level3_mastery.msgpack"),
+                                 "level3", 128, device=dev, n_drones=4)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+    check(la["race_step_fused"] == 825, f"V1: launches {dict(la)}")
+    cross = {k: out[k] >= v for k, v in V1_CROSS.items()}
+    platform = {k: out[k] >= v for k, v in V1_PLATFORM.items()}
+    platform["mean_lap_time < 6"] = (out["mean_lap_time"] is not None
+                                     and out["mean_lap_time"] < 6.0)
+    print(f"[22] V1: evaluate(level3_mastery, level3, 128 envs x 4 drones) "
+          f"through race_step ({la['race_step_fused']} launches, "
+          f"{wall:.1f} s): {json.dumps(out)}; cross-platform floors "
+          f"{V1_CROSS}: {cross}; platform floors {V1_PLATFORM}, lap < 6 s: "
+          f"{platform}; on {gpu}", flush=True)
+    check(all(cross.values()), f"V1 below the cross-platform floors {cross}")
+    return {"metrics": out, "cross": cross, "platform": platform,
+            "wall_s": wall}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -1763,14 +2088,23 @@ def main():
     results["race_window"] = k3
 
     # ---- 4. race_step kernel vs plain -----------------------------------------
-    # the last case is the evaluation's own env (phase 5): level1, 128 envs,
-    # 1 drone, its seed and so its disturbances, 4 tiles of 32 envs
+    # after the getting_started and level1 cases, the main paths' own envs:
+    # the evaluation's (phase 5: level1, 128 envs, 1 drone, seed 42, 4
+    # tiles of 32 envs), the league trainer's (phase 18) and V1's (phase 22)
     k4 = {"max_abs_err": 0.0}
-    for cfg, nd, n, seed in (("getting_started", 2, n_envs, 5),
-                             ("getting_started", 1, n_envs, 5),
-                             ("level1", 1, n_envs, 5), ("level1", 1, 128, 42)):
-        env = eval_race.make_eval_env(cfg, n, dev, seed=seed, n_drones=nd)
-        env.telemetry = True
+    cases = [(f"{cfg} {n} envs N={nd}",
+              lambda cfg=cfg, nd=nd, n=n, seed=seed: eval_race.make_eval_env(
+                  cfg, n, dev, seed=seed, n_drones=nd))
+             for cfg, nd, n, seed in (("getting_started", 2, n_envs, 5),
+                                      ("getting_started", 1, n_envs, 5),
+                                      ("level1", 1, n_envs, 5),
+                                      ("level1", 1, 128, 42),
+                                      ("level3", 4, 128, 42))]
+    cases.insert(4, ("league: level3 1024 envs N=4",
+                     lambda: league_env(dev, 1024)))
+    for label, make in cases:
+        env = make()
+        n, nd = env.n_envs, env.N
         st = env.reset()
         for i in range(13):
             a = torch.rand((n, nd, 4) if nd > 1 else (n, 4),
@@ -1781,12 +2115,12 @@ def main():
                      draws.RST, draws.RSTG, draws.RSTO)
             kw = dict(n_ticks=env.n_ticks, dt=env.dt,
                       spec_tail=env.spec_tail, noise_rows=draws.noise_rows,
-                      telemetry=True)
+                      telemetry=env.telemetry, elim_penalty=env.elim_penalty)
             ref = race_step.race_step_fused_plain(*args_, **kw)
             if i >= 10:  # compare 3 consecutive steps, from the same input
                 got = race_step.race_step_fused(*args_, **kw)
                 torch.cuda.synchronize()
-                name = f"race_step[{cfg} {n} envs N={nd} step {i}]"
+                name = f"race_step[{label} step {i}]"
                 errs = check_step(name, dict(zip(STEP_OUT, got)),
                                   dict(zip(STEP_OUT, ref)))
                 check(all(torch.equal(a, b) for a, b in zip(got, ref)),
@@ -1966,6 +2300,15 @@ def main():
                       main_launches)
     results["race_window"] = general
 
+    # ---- 18-22. the league, checkpoints, the public surfaces, V1 ----------
+    surfaces = {
+        "league": phase18(dev, gpu, kernels, plain, main_launches),
+        "checkpoint": phase19(dev, gpu, kernels, plain, main_launches),
+        "race_vector_env": phase20(dev, gpu, kernels, plain, main_launches),
+        "sim": phase21(dev, gpu, kernels, plain, main_launches),
+        "v1": phase22(dev, gpu, eval_race, kernels, plain, main_launches),
+    }
+
     src = "gym_pybullet_adrp_tpu_torch/csrc/"
     kernels = [
         {"name": "race_window", "route": "cuda",
@@ -2018,7 +2361,7 @@ def main():
             "seconds": {"eval_fused": t_fused, "eval_unfused": t_unfused},
             "ppo_card_vs_cpu": ppo_err, "training": train_out,
             "rollout_times": times11, "hover_ppo": hover_ppo,
-            "general": general,
+            "general": general, "surfaces": surfaces,
             "launches": main_launches,
         }, indent=1, default=str))
     print(gpu)

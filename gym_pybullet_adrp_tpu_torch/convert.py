@@ -15,14 +15,14 @@
   ``core_state_from_numpy`` and ``rl_state_from_numpy`` (any object with
   the JAX ``PhysState``/``CoreState``/``RLState`` attributes, e.g. a
   vmapped JAX state: leaves carry the batch axis first, as the port's),
-  ``drone_params_from_numpy`` (an object with ``DroneParams``' fields).
-  The port has no PID controller yet, so an ``RLState``'s ``ctrl`` is
-  dropped.
+  ``drone_params_from_numpy`` (an object with ``DroneParams``' fields),
+  ``pid_state_from_numpy`` (the DSL PID controller's state).
 """
 
 import numpy as np
 import torch
 
+from .control.dslpid import PIDState
 from .envs.core import CoreState
 from .envs.fast_hover import FastHoverState
 from .envs.race_rl_rowfast import RowRaceState
@@ -120,8 +120,14 @@ def core_state_from_numpy(core, device="cuda") -> CoreState:
                      step_counter=_i32(core.step_counter, device))
 
 
+def pid_state_from_numpy(ctl, device="cuda") -> PIDState:
+    return PIDState(*(_f32(getattr(ctl, k), device)
+                      for k in PIDState._fields))
+
+
 def rl_state_from_numpy(state, device="cuda") -> RLState:
-    return RLState(core=core_state_from_numpy(state.core, device), ctrl=None,
+    return RLState(core=core_state_from_numpy(state.core, device),
+                   ctrl=pid_state_from_numpy(state.ctrl, device),
                    action_buffer=_f32(state.action_buffer, device),
                    target_pos=_f32(state.target_pos, device))
 

@@ -10,7 +10,7 @@ Counterpart of gym_pybullet_adrp_tpu.envs.race (``RaceSpec`` :58,
 firmware (control/), the physics of ops/dynamics.py and the collision
 tests of ops/collision.py; the step runs its 20 firmware ticks as eager
 tensor ops (envs/race_fast.py runs them in the window kernel). The gym
-class ``MultiRaceAviary`` is not ported yet.
+class ``MultiRaceAviary`` (:590 there) is one env of this step.
 
 Batched: where the JAX package writes one env and vmaps it, every state
 tensor here carries the env batch B first, ``(B, N, ...)`` per drone,
@@ -21,6 +21,7 @@ motor noise, ``TickNoise``) or are injected, so a test hands both
 packages the same draws.
 """
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -37,6 +38,7 @@ from ..utils.constants import (
 )
 from ..utils.device_consts import const
 from ..utils.enums import Command, DroneModel, Physics, RaceMode
+from .aviary import LazySpaces, box, no_camera
 
 
 @dataclass(frozen=True)
@@ -554,3 +556,162 @@ def actions_to_commands(spec: RaceSpec, actions, step_counter):
     args[..., 9] = actions[..., 3]
     args[..., 13] = step_counter[:, None]
     return cmd_ids, args
+
+
+# ---------------------------------------------------------------------------
+# the gymnasium class
+
+
+class MultiRaceAviary(LazySpaces):
+    """Gymnasium-API shell over the race env (reference
+    envs/MultiRaceAviary.py; the JAX package's class :590-835): one env
+    of ``race_step`` on ``device`` (the card unless the caller asks for
+    the CPU), its commands packed on the host and uploaded once a step,
+    its obs, reward and flags downloaded as one tensor. Resets and
+    disturbances draw from a ``torch.Generator`` seeded from
+    ``reset(seed)`` or the config's ``seed`` (counting up per reset where
+    ``reseed_on_reset`` is False), as the JAX class keys ``jax.random``.
+
+    Like envs/aviary.py's classes it imports gymnasium only when its
+    spaces are read; the RGB observation waits for the render slice
+    (ROADMAP queue 1 item 8) and raises ``NotImplementedError``."""
+
+    metadata = {"render_modes": []}
+
+    def __init__(self, race_config, drone_model: DroneModel = DroneModel.CF2X,
+                 num_drones: int = 2, physics: Physics = Physics.PYB,
+                 pyb_freq: int = None, ctrl_freq: int = None,
+                 gui: bool = False, record: bool = False,
+                 racemode: RaceMode = RaceMode.COMPARE, obs=None, act=None,
+                 dtype=torch.float32, device="cuda"):
+        from ..utils.enums import ObservationType
+
+        if isinstance(race_config, str):
+            from ..utils.config import load_config
+
+            race_config = load_config(race_config)
+        if obs == ObservationType.RGB:
+            no_camera("ObservationType.RGB")
+        self.config = race_config
+        self.observation_type = obs or ObservationType.KIN
+        self.IMG_RES = np.array([64, 48])
+        spec = RaceSpec.from_config(race_config, num_drones, racemode,
+                                    physics)
+        if pyb_freq or ctrl_freq:
+            spec = dataclasses.replace(spec, pyb_freq=pyb_freq or
+                                       spec.pyb_freq,
+                                       ctrl_freq=ctrl_freq or spec.ctrl_freq)
+        self.spec_ = spec
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.track = track_from_config(race_config, num_drones)
+        self._track = track_tensors(self.track, self.device, dtype)
+        self.NUM_DRONES = num_drones
+        self.CTRL_FREQ = spec.ctrl_freq
+        self.PYB_FREQ = spec.pyb_freq
+        self.PYB_STEPS_PER_CTRL = spec.steps_per_ctrl
+        self.CTRL_TIMESTEP = 1.0 / self.CTRL_FREQ
+        self.racemode = racemode
+        self.num_gates = spec.num_gates
+        self.EPISODE_LEN_SEC = spec.episode_len_sec
+        self._seed_counter = int(race_config.get("seed", 1337))
+        self._reseed = bool(race_config.get("reseed_on_reset", True))
+        self._gen = torch.Generator(device=self.device)
+        self._state: Optional[RaceState] = None
+        self.step_counter = 0
+
+    # -- spaces (reference :284-343) ----------------------------------------
+    def _actionSpace(self):
+        lim = np.ones((self.NUM_DRONES, 4))
+        return box(-lim, lim, dtype=float)
+
+    def _observationSpace(self):
+        G, O = self.spec_.num_gates, self.spec_.num_obstacles
+        lo = np.concatenate([
+            [-5] * 3, [-np.pi] * 3, [-10] * 3, [-10] * 3,
+            [-5, -5, -5, -np.pi] * G, [-1] * G, [-5] * 3 * O, [-1] * O,
+            [-1]])
+        hi = np.concatenate([
+            [5] * 3, [np.pi] * 3, [10] * 3, [10] * 3,
+            [5, 5, 5, np.pi] * G, [1] * G, [5] * 3 * O, [1] * O, [G]])
+        if self.racemode == RaceMode.COMPETE:
+            others = self.NUM_DRONES - 1
+            lo = np.concatenate([lo, ([-5] * 3 + [-np.pi] * 3) * others])
+            hi = np.concatenate([hi, ([5] * 3 + [np.pi] * 3) * others])
+        return box(np.tile(lo, (self.NUM_DRONES, 1)),
+                   np.tile(hi, (self.NUM_DRONES, 1)), dtype=np.float64)
+
+    # -- API ----------------------------------------------------------------
+    @property
+    def current_gate(self):
+        return self._state.current_gate[0].cpu().numpy()
+
+    @property
+    def drones_eliminated(self):
+        return self._state.eliminated[0].cpu().numpy()
+
+    @property
+    def drones_finished(self):
+        return self._state.finished[0].cpu().numpy()
+
+    def reset(self, seed: Optional[int] = None,
+              options: Optional[dict] = None):
+        if seed is None:
+            if not self._reseed:
+                # reseed_on_reset False: episode-varying randomness (level3)
+                self._seed_counter += 1
+            seed = self._seed_counter
+        self._gen.manual_seed(int(seed))
+        self._state = race_reset(self.spec_, self._track, 1,
+                                 generator=self._gen, device=self.device,
+                                 dtype=self.dtype)
+        self.step_counter = 0
+        obs = compute_obs(self.spec_, self._track, self._state)[0]
+        return obs.cpu().numpy().astype(np.float64), {"answer": 42}
+
+    def _commands(self, action):
+        """(cmd ids (N,), args (N, ARGS_DIM)) on the host: FULLSTATE
+        targets from an ndarray (N, 4) [x, y, z, yaw], or each drone's
+        ``(Command, args)`` tuple (reference step:189-207)."""
+        n = self.NUM_DRONES
+        args = np.zeros((n, cmdr_mod.ARGS_DIM), np.float32)
+        if isinstance(action, (list, tuple)):
+            ids = np.zeros((n,), np.int32)
+            for i, (cmd, a) in enumerate(action):
+                ids[i], args[i] = cmdr_mod.pack_command(cmd, a)
+        else:
+            action = np.asarray(action, dtype=np.float32).reshape(n, 4)
+            ids = np.full((n,), int(Command.FULLSTATE), np.int32)
+            args[:, 0:3] = action[:, 0:3]
+            args[:, 9] = action[:, 3]
+            args[:, 13] = self.step_counter
+        return ids, args
+
+    def step(self, action):
+        """``action``: ndarray (N, 4) or a list of (Command, args) per
+        drone. Returns (obs (N, C) float64, reward, terminated, truncated,
+        info)."""
+        ids, args = self._commands(action)
+        up = torch.from_numpy(np.concatenate(
+            [ids[:, None].astype(np.float32), args], axis=1)).to(self.device)
+        state, obs, reward, term, trunc, info = race_step(
+            self.spec_, self._track, self._state,
+            up[None, :, 0].to(torch.int32), up[None, :, 1:].to(self.dtype),
+            generator=self._gen)
+        self._state = state
+        # the device counter advances PYB_STEPS_PER_CTRL a step
+        self.step_counter += self.PYB_STEPS_PER_CTRL
+        dt = obs.dtype
+        packed = torch.cat([obs[0].reshape(-1), reward.to(dt), term.to(dt),
+                            trunc.to(dt), info["task_completed"].to(dt)])
+        packed = packed.cpu().numpy().astype(np.float64)
+        tail = packed[-4:]
+        return (packed[:-4].reshape(self.NUM_DRONES, -1), float(tail[0]),
+                bool(tail[1] > 0.5), bool(tail[2] > 0.5),
+                {"answer": 42, "task_completed": bool(tail[3] > 0.5)})
+
+    def render(self, mode: str = "human", close: bool = False):
+        return None
+
+    def close(self):
+        pass

@@ -9,9 +9,9 @@ Counterpart of gym_pybullet_adrp_tpu/envs/rl.py (``RLConfig`` :42,
 The half-second action history of the reference (a deque) is a rolled
 tensor in the state.
 
-Ported action types: RPM and ONE_D_RPM. PID, VEL and ONE_D_PID run the
-DSL PID controller (``control/dslpid.py`` of the JAX package), which
-belongs to the port's controllers slice: they raise NotImplementedError.
+Every action type of the JAX package: RPM and ONE_D_RPM scale the hover
+RPM; PID, VEL and ONE_D_PID run the DSL PID controller
+(``control/dslpid.py``), whose state ``RLState.ctrl`` carries per drone.
 The RGB observation (``compute_rgb_obs``) waits for the render slice.
 """
 
@@ -23,10 +23,9 @@ import torch
 
 from . import core
 from .core import AviaryConfig, CoreState
+from ..control import dslpid
 from ..models.drone import DroneParams
-from ..utils.enums import ActionType, ObservationType
-
-_PORTED = (ActionType.RPM, ActionType.ONE_D_RPM)
+from ..utils.enums import ActionType, DroneModel, ObservationType
 
 
 def action_size(act: ActionType) -> int:
@@ -38,14 +37,6 @@ def action_size(act: ActionType) -> int:
     if act in (ActionType.ONE_D_RPM, ActionType.ONE_D_PID):
         return 1
     raise ValueError(f"unsupported ActionType {act}")
-
-
-def _check_ported(act: ActionType):
-    if act not in _PORTED:
-        raise NotImplementedError(
-            f"ActionType.{act.name} needs the DSL PID controller "
-            "(control/dslpid.py), which is not ported yet (controllers "
-            "slice); the port runs RPM and ONE_D_RPM")
 
 
 @dataclass(frozen=True)
@@ -74,11 +65,10 @@ class RLConfig:
 
 
 class RLState(NamedTuple):
-    """Dynamic state of B RL envs. ``ctrl`` holds the PID controller's
-    state of the JAX package; it is None for the ported action types."""
+    """Dynamic state of B RL envs."""
 
     core: CoreState
-    ctrl: Optional[object]
+    ctrl: dslpid.PIDState            # (B, N, 3) leaves
     action_buffer: torch.Tensor      # (B, BUF, N, A), index 0 = oldest
     target_pos: torch.Tensor         # (B, N, 3)
 
@@ -99,14 +89,14 @@ def hover_target(cfg: RLConfig, init_xyzs) -> torch.Tensor:
 
 def rl_reset(cfg: RLConfig, init_xyzs, init_rpys, batch: int = 1,
              dtype=torch.float32, device="cuda") -> RLState:
-    """``batch`` fresh envs at the initial poses (N, 3)."""
-    _check_ported(cfg.act_type)
+    """``batch`` fresh envs at the initial poses (N, 3), or (B, N, 3)
+    per env."""
     cstate = core.core_reset(cfg.aviary, init_xyzs, init_rpys, batch, dtype,
                              device)
     n = cfg.aviary.num_drones
     return RLState(
         core=cstate,
-        ctrl=None,
+        ctrl=dslpid.init_state((batch, n), dtype, device),
         action_buffer=torch.zeros(
             (batch, cfg.action_buffer_size, n, cfg.act_size), dtype=dtype,
             device=device),
@@ -119,11 +109,43 @@ def preprocess_action(cfg: RLConfig, params: DroneParams, state: RLState,
     """Action (B, N, A) in [-1, 1] -> (motor rpm (B, N, 4), ctrl state)
     (reference BaseRLAviary._preprocessAction:160-239)."""
     act = cfg.act_type
-    _check_ported(act)
-    rpm = params.hover_rpm * (1.0 + 0.05 * action)
-    if act == ActionType.ONE_D_RPM:
-        rpm = torch.repeat_interleave(rpm, 4, dim=-1)
-    return rpm, state.ctrl
+    ctl = state.ctrl
+    if act in (ActionType.RPM, ActionType.ONE_D_RPM):
+        rpm = params.hover_rpm * (1.0 + 0.05 * action)
+        if act == ActionType.ONE_D_RPM:
+            rpm = torch.repeat_interleave(rpm, 4, dim=-1)
+        return rpm, ctl
+    sv = core.state_vector(state.core)
+    pos, q, vel, yaw = sv[..., 0:3], sv[..., 3:7], sv[..., 10:13], sv[..., 9]
+    dt = cfg.aviary.ctrl_timestep
+    if act == ActionType.PID:
+        target, kw = core.calculate_next_step(pos, action, 1.0), {}
+    elif act == ActionType.VEL:
+        target, kw = vel_targets(params, pos, yaw, action)
+    elif act == ActionType.ONE_D_PID:
+        z = torch.zeros_like(action)
+        target, kw = pos + 0.1 * torch.cat([z, z, action], dim=-1), {}
+    else:
+        raise ValueError(f"unsupported ActionType {act}")
+    rpm, ctl, _, _ = dslpid.compute_control(params, ctl, dt, pos, q, vel,
+                                            target, model=DroneModel.CF2X,
+                                            **kw)
+    return rpm, ctl
+
+
+def vel_targets(params: DroneParams, pos, yaw, action):
+    """The VEL action's controller target: hold ``pos`` and ``yaw`` and
+    fly at speed_limit * |a[3]| along a[:3] (reference
+    BaseRLAviary._preprocessAction's VEL branch and
+    VelocityAviary._preprocessAction). Returns (target_pos, keyword args of
+    ``dslpid.compute_control``)."""
+    norm = torch.linalg.norm(action[..., 0:3], dim=-1, keepdim=True)
+    v_unit = torch.where(
+        norm > 0, action[..., 0:3] / torch.clamp_min(norm, 1e-12), 0.0)
+    z = torch.zeros_like(yaw)
+    return pos, dict(target_rpy=torch.stack([z, z, yaw], dim=-1),
+                     target_vel=(params.speed_limit
+                                 * torch.abs(action[..., 3:4]) * v_unit))
 
 
 def compute_obs(cfg: RLConfig, state: RLState) -> torch.Tensor:

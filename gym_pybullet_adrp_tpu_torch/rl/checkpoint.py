@@ -1,8 +1,20 @@
-"""Read and write the flax-msgpack policy artifacts without flax or
-msgpack.
+"""Whole-train-state checkpoints, and the flax-msgpack policy artifacts
+read and written without flax or msgpack.
 
-Counterpart of gym_pybullet_adrp_tpu.rl.checkpoint (``save_policy`` :47,
-``load_policy`` :58).
+Counterpart of gym_pybullet_adrp_tpu.rl.checkpoint (``save_checkpoint``
+:19, ``restore_checkpoint`` :33, ``save_policy`` :47, ``load_policy``
+:58).
+
+``save_checkpoint`` writes a ``rl.ppo.TrainState`` with ``torch.save``
+into ``<path>/<step>/train_state.pt`` (the JAX package writes orbax
+step directories): the policy's ``state_dict``, every tensor of the
+optimizer and env state and the episode bookkeeping, and the states of
+both generators that draw, ``TrainState.rng`` (the learner's) and
+``TrainState.env_rng`` (the env's, which the JAX package threads as a
+key through its env state). ``restore_checkpoint`` rebuilds a train
+state of the template's structure from them, so a resumed run draws the
+numbers an unbroken one draws.
+
 The shipped artifacts (``agents/*.msgpack``, ``results/*.msgpack``) are
 ``flax.serialization.to_bytes`` of a params tree: msgpack maps with str
 keys whose leaves are the ext type 1 (ndarray) payload
@@ -17,10 +29,14 @@ artifact read and written back gives its own bytes, and the JAX
 package's ``load_policy`` reads what ``save_policy`` writes.
 """
 
+import os
+import shutil
 import struct
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
+import torch
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -191,3 +207,105 @@ def load_policy(path, device="cuda"):
     from ..convert import actor_critic_from_flax
 
     return actor_critic_from_flax(load_params(path)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# whole-train-state checkpoints
+
+_STATE_FILE = "train_state.pt"
+
+
+def _flatten(tree, out):
+    """The leaves of ``tree`` in order: tensors, ints, floats and None as
+    they are, an ``nn.Module`` as its ``state_dict``, a
+    ``torch.Generator`` as its state."""
+    if isinstance(tree, torch.nn.Module):
+        out.append(tree.state_dict())
+    elif isinstance(tree, torch.Generator):
+        out.append(tree.get_state())
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            _flatten(x, out)
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _flatten(tree[k], out)
+    elif tree is None or isinstance(tree, (torch.Tensor, int, float)):
+        out.append(tree)
+    else:
+        raise TypeError(f"checkpoint: unsupported leaf {type(tree)}")
+    return out
+
+
+def _unflatten(template, leaves, device, name="train_state"):
+    """A tree of ``template``'s structure from ``leaves`` (consumed from
+    the front); modules and generators of the template are loaded in
+    place and returned."""
+    if isinstance(template, torch.nn.Module):
+        template.load_state_dict(leaves.pop(0))
+        return template.to(device)
+    if isinstance(template, torch.Generator):
+        template.set_state(leaves.pop(0))
+        return template
+    if isinstance(template, (tuple, list)):
+        items = [_unflatten(x, leaves, device, f"{name}[{i}]")
+                 for i, x in enumerate(template)]
+        if hasattr(template, "_fields"):
+            return type(template)(*items)
+        return type(template)(items)
+    if isinstance(template, dict):
+        return {k: _unflatten(template[k], leaves, device, f"{name}.{k}")
+                for k in sorted(template)}
+    leaf = leaves.pop(0)
+    if isinstance(template, torch.Tensor):
+        if (not isinstance(leaf, torch.Tensor) or leaf.shape != template.shape
+                or leaf.dtype != template.dtype):
+            raise ValueError(f"checkpoint: {name} does not fit the template "
+                             f"({template.dtype} {tuple(template.shape)})")
+        return leaf.to(device)
+    return leaf
+
+
+def _steps(path: Path):
+    return sorted(int(p.name) for p in path.iterdir()
+                  if p.name.isdigit() and (p / _STATE_FILE).exists())
+
+
+def save_checkpoint(path, train_state, step: int, keep: int = 3):
+    """Write checkpoint ``step`` of ``train_state`` (a ``rl.ppo.
+    TrainState``) under ``path``, creating directories, and delete all
+    but the ``keep`` newest; returns the step's directory."""
+    path = Path(path).resolve()
+    out = path / str(int(step))
+    out.mkdir(parents=True, exist_ok=True)
+    tmp = out / (_STATE_FILE + ".tmp")
+    torch.save({"step": int(step), "leaves": _flatten(train_state, [])},
+               tmp)
+    os.replace(tmp, out / _STATE_FILE)
+    for old in _steps(path)[:-keep] if keep > 0 else []:
+        shutil.rmtree(path / str(old))
+    return out
+
+
+def restore_checkpoint(path, template, step: Optional[int] = None,
+                       device="cuda"):
+    """(train_state, step): checkpoint ``step`` (the newest when None)
+    under ``path``, in the structure of ``template`` (a fresh
+    ``init_fn`` output, whose policy and generators are loaded in place),
+    with its tensors on ``device``, the card unless the caller asks for
+    the CPU. Raises ``FileNotFoundError`` when there is no checkpoint."""
+    path = Path(path).resolve()
+    steps = _steps(path) if path.is_dir() else []
+    if step is None:
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {path}")
+        step = steps[-1]
+    f = path / str(int(step)) / _STATE_FILE
+    if not f.exists():
+        raise FileNotFoundError(f"no checkpoint {step} under {path}")
+    data = torch.load(f, map_location="cpu", weights_only=True)
+    leaves = list(data["leaves"])
+    state = _unflatten(template, leaves, torch.device(device))
+    if leaves:
+        raise ValueError(f"{f}: {len(leaves)} leaves more than the "
+                         "template holds")
+    return state, data["step"]

@@ -14,8 +14,10 @@ optax's to the rounding.
 Random numbers: ``TrainState.rng`` is a ``torch.Generator`` on the
 learner's device. It draws the policy's Gaussian noise in the rollout and
 the minibatch permutations, in that order, each iteration; the env draws
-from its own generator. JAX splits keys instead, so the two packages
-give different streams from one seed.
+from its own generator (``EnvAdapter.generator``), which the train state
+carries as ``env_rng`` so that a checkpoint (rl/checkpoint.py) holds it.
+JAX splits keys instead, so the two packages give different streams
+from one seed.
 
 The learner runs in float32. On the card that needs
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default),
@@ -76,12 +78,14 @@ class EnvAdapter(NamedTuple):
     step(env_state, action (n_envs, act_dim)) -> (env_state, flat_obs,
         reward (n_envs,), done (n_envs,)), autoreset: the post-done obs
         is the fresh episode's first obs.
+    generator: the ``torch.Generator`` the env draws from, or None.
     """
 
     batched_reset: Callable
     step: Callable
     obs_dim: int
     act_dim: int
+    generator: Optional[torch.Generator] = None
 
 
 class Transition(NamedTuple):
@@ -107,6 +111,7 @@ class TrainState(NamedTuple):
     rng: torch.Generator
     ep_return: torch.Tensor
     ep_len: torch.Tensor
+    env_rng: Optional[torch.Generator] = None   # the env's draws
 
 
 def linear_schedule(init_value, end_value, transition_steps):
@@ -279,6 +284,7 @@ def make_ppo_core(cfg: PPOConfig, adapter: EnvAdapter, hidden=(64, 64),
             ep_return=torch.zeros(cfg.n_envs, device=device),
             ep_len=torch.zeros(cfg.n_envs, dtype=torch.int32,
                                device=device),
+            env_rng=adapter.generator,
         )
 
     @torch.no_grad()

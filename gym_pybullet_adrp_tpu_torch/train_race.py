@@ -17,25 +17,45 @@ it (:167-190, :356-424), on one of two envs:
   20-tick firmware window in one launch of the window kernel for all
   envs (envs/race_fast.py).
 
-Not ported yet, and refused with an error: ``--league``,
-``--prox_penalty`` and ``--obs rgb``.
+On the row env with N > 1 COMPETE drones, two options of the JAX
+script shape the self-play (:61-66, :95-110, :222-330, :400-410):
+
+* ``--prox_penalty w`` (``prox_shape``): each drone's reward loses
+  ``w * max(0, 1 - d / --prox_radius)``, d its nearest opponent's
+  horizontal distance read from the opponent-pose obs channels.
+* ``--league a.msgpack,b.msgpack,...``: drone 0 of every env is the
+  learner; drones 1..N-1 fly the mean action of a frozen pool member
+  (env block i of n_envs/P takes member i, ``OpponentPool``), and the
+  PPO batch holds drone 0's rows only. ``--league_refresh k`` copies the
+  learner into pool slot 0 every k iterations.
+
+Both compute outside the kernel, between its launches (one race_step
+launch a step), so they do not combine with ``--fuse_policy``. The
+JAX script's guards on them raise ``ValueError`` here. ``--obs rgb`` is
+not ported yet and is refused with an error.
 
 Usage:
   python -m gym_pybullet_adrp_tpu_torch.train_race \\
       --config getting_started --n_envs 4096 --fuse_policy
   python -m gym_pybullet_adrp_tpu_torch.train_race --fast --n_envs 4096
+  python -m gym_pybullet_adrp_tpu_torch.train_race --config level3 \\
+      --compete --n_drones 4 --n_envs 1024 --end_after_gate 0 \\
+      --league results/level3_mastery.msgpack,results/level3_selfplay.msgpack
 """
 
 import argparse
 import dataclasses
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .envs import race as race_mod
 from .envs import race_fast, race_rl
-from .envs.race_rl_rowfast import make_policy_rollout, make_row_env
+from .envs.race_rl_rowfast import (
+    RowRaceState, make_policy_rollout, make_row_env,
+)
 from .rl import checkpoint as ckpt
 from .rl.ppo import EnvAdapter, PPOConfig, make_ppo_core
 from .utils.config import load_config
@@ -54,7 +74,8 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
           elim_penalty=1.0, kernel_chunk=16, fuse_policy=False,
           hidden=(64, 64), n_drones=1, compete=False, seed=0,
           device="cuda", log_every=10, general=False, league=None,
-          prox_penalty=0.0, obs="kin", fast=False):
+          league_refresh=0, prox_penalty=0.0, prox_radius=0.3, obs="kin",
+          fast=False):
     """Train a race policy with PPO; returns a dict with ``metrics`` (one
     dict of floats per iteration: loss, mean_episode_return, mean_reward,
     steps), ``times`` (per iteration, the seconds of its phases:
@@ -64,12 +85,13 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
     the caller asks for the CPU; writes the policy to ``out`` when
     given. ``general`` trains on the general race env, ``fast`` (which
     implies it) with its window in the K3 kernel; ``env`` is then a
-    ``GeneralEnv``."""
+    ``GeneralEnv``. ``league`` (comma-separated policy paths, or a list)
+    trains drone 0 against a frozen pool (``ts.env_state`` is then a
+    ``LeagueState``), refreshed every ``league_refresh`` iterations;
+    ``prox_penalty`` shapes COMPETE self-play rewards (``prox_shape``)."""
     general = general or fast
-    if league:
-        _not_ported("--league")
-    if prox_penalty:
-        _not_ported("--prox_penalty")
+    if isinstance(league, str):
+        league = [p for p in league.split(",") if p]
     if obs != "kin":
         _not_ported("--obs rgb")
     if general and n_drones > 1:
@@ -78,6 +100,20 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
     if general and fuse_policy:
         raise ValueError("fuse_policy runs the policy inside the row env's "
                          "kernels; the general env runs it outside")
+    # the JAX script's guards (scripts/train_race.py:153-165)
+    if prox_penalty and not (n_drones > 1 and compete):
+        raise ValueError("prox_penalty needs COMPETE self-play (compete, "
+                         "n_drones > 1): it reads the opponent-pose "
+                         "channels")
+    if prox_penalty and fuse_policy:
+        raise ValueError("prox_penalty shapes rewards between the kernel's "
+                         "launches; use it without fuse_policy")
+    if league and (general or not compete or n_drones < 2):
+        raise ValueError("league needs the row env, compete and "
+                         "n_drones > 1")
+    if league and fuse_policy:
+        raise ValueError("league computes the opponents' actions between "
+                         "the kernel's launches; use it without fuse_policy")
     device = torch.device(device)
     if device.type == "cuda":
         # the learner's matmuls in full float32 (PyTorch's default, stated)
@@ -89,8 +125,9 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
                                          Physics.PYB)
     track = race_mod.track_from_config(cfg_yaml, n_drones)
 
-    # self-play: the PPO batch is every drone of every env
-    ppo_rows = n_envs * n_drones
+    # self-play: the PPO batch is every drone of every env; league: only
+    # the learner drone's rows
+    ppo_rows = n_envs * (1 if league else n_drones)
     blk = max(1, shuffle_block)
     mb = ppo_rows * n_steps // 8
     while mb % blk:
@@ -113,11 +150,13 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
         env = GeneralEnv(spec, track, n_envs, device, gen, end_after_gate,
                          fast)
         adapter = EnvAdapter(batched_reset=env.reset, step=env.step,
-                             obs_dim=spec.obs_size, act_dim=4)
+                             obs_dim=spec.obs_size, act_dim=4,
+                             generator=gen)
     else:
         env, adapter, rollout_override = _row_adapter(
             spec, track, n_envs, n_steps, device, gen, end_after_gate,
-            elim_penalty, hidden, fuse_policy, kernel_chunk)
+            elim_penalty, hidden, fuse_policy, kernel_chunk,
+            prox_penalty, prox_radius, league)
     C = spec.obs_size
 
     init_fn, train_step, _ = make_ppo_core(
@@ -138,6 +177,10 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
         t0 = time.perf_counter()
         phase = {}
         ts, metrics = train_step(ts, times=phase)
+        if league and league_refresh and (it + 1) % league_refresh == 0:
+            # past-selves league: slot 0 becomes the current learner
+            ts = ts._replace(env_state=ts.env_state._replace(
+                pool=refresh_pool(ts.env_state.pool, ts.params)))
         m = {k: float(v) for k, v in metrics.items()}
         phase["iteration"] = time.perf_counter() - t0
         hist.append(m)
@@ -158,8 +201,95 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
             "cfg": cfg, "train_step": train_step}
 
 
+def prox_shape(obs, reward, weight, radius):
+    """``reward`` (B, N) less ``weight * clip(1 - d / radius, 0, 1)``,
+    d each drone's horizontal distance to its nearest opponent, read from
+    the COMPETE obs (B, N, C), whose last 6 (N - 1) channels are the
+    opponents' poses (scripts/train_race.py:222-240)."""
+    N, C = obs.shape[-2], obs.shape[-1]
+    base = C - 6 * (N - 1)
+    px, py = obs[..., 0], obs[..., 1]
+    d2min = None
+    for j in range(N - 1):
+        d2 = ((px - obs[..., base + 6 * j]) ** 2
+              + (py - obs[..., base + 6 * j + 1]) ** 2)
+        d2min = d2 if d2min is None else torch.minimum(d2min, d2)
+    pen = weight * torch.clamp(1.0 - torch.sqrt(d2min) / radius, 0.0, 1.0)
+    return reward - pen
+
+
+class OpponentPool(NamedTuple):
+    """P frozen policies' actor towers, stacked: ``weight[i]`` (P, in,
+    out) and ``bias[i]`` (P, 1, out) of hidden layer i, then the mean
+    head's."""
+
+    weight: tuple
+    bias: tuple
+
+
+def _actor_layers(net):
+    return list(net.pi) + [net.pi_out]
+
+
+def pool_from_policies(nets) -> OpponentPool:
+    """The pool of the ``ActorCritic``s ``nets`` (one width)."""
+    with torch.no_grad():
+        layers = [_actor_layers(n) for n in nets]
+        return OpponentPool(
+            weight=tuple(torch.stack([ls[i].weight.T for ls in layers])
+                         .contiguous() for i in range(len(layers[0]))),
+            bias=tuple(torch.stack([ls[i].bias[None] for ls in layers])
+                       for i in range(len(layers[0]))))
+
+
+def pool_forward(pool: OpponentPool, obs):
+    """The mean actions (P, M, act) of member p on ``obs[p]`` (P, M,
+    obs_dim): tanh hidden layers then the linear head, as one batched
+    matmul per layer (the JAX script's ``vmap(opp_net.apply)``)."""
+    x = obs
+    last = len(pool.weight) - 1
+    for i, (w, b) in enumerate(zip(pool.weight, pool.bias)):
+        x = torch.baddbmm(b, x, w)
+        if i < last:
+            x = torch.tanh(x)
+    return x
+
+
+def refresh_pool(pool: OpponentPool, net) -> OpponentPool:
+    """``pool`` with slot 0 replaced by ``net``'s current weights."""
+    with torch.no_grad():
+        new = [(w.clone(), b.clone()) for w, b in zip(pool.weight,
+                                                       pool.bias)]
+        for (w, b), lay in zip(new, _actor_layers(net)):
+            w[0] = lay.weight.T
+            b[0, 0] = lay.bias
+    return OpponentPool(tuple(w for w, _ in new), tuple(b for _, b in new))
+
+
+class LeagueState(NamedTuple):
+    """The league adapter's env state: the row env's state, the post-step
+    obs of every drone (B, N, C) and the opponent pool."""
+
+    row: RowRaceState
+    obs: torch.Tensor
+    pool: OpponentPool
+
+
+def load_pool(paths, hidden, obs_dim, device="cuda") -> OpponentPool:
+    """The pool of the policy artifacts at ``paths`` on ``device`` (the
+    card unless the caller asks for the CPU), each of ``obs_dim``-``hidden``
+    widths."""
+    nets = [ckpt.load_policy(p, device) for p in paths]
+    for p, n in zip(paths, nets):
+        if n.hidden != hidden or n.obs_dim != obs_dim:
+            raise ValueError(f"{p}: widths {n.obs_dim}-{n.hidden} do not "
+                             f"fit {obs_dim}-{hidden}")
+    return pool_from_policies(nets)
+
+
 def _row_adapter(spec, track, n_envs, n_steps, device, gen, end_after_gate,
-                 elim_penalty, hidden, fuse_policy, kernel_chunk):
+                 elim_penalty, hidden, fuse_policy, kernel_chunk,
+                 prox_penalty=0.0, prox_radius=0.3, league=None):
     """The row env, its PPO adapter and, with ``fuse_policy``, the policy
     rollout's override."""
     N = spec.num_drones
@@ -178,12 +308,41 @@ def _row_adapter(spec, track, n_envs, n_steps, device, gen, end_after_gate,
         env_state, o, reward, done = env.step(env_state, act)[:4]
         if N == 1:
             return env_state, o, reward, done
+        if prox_penalty:
+            reward = prox_shape(o, reward, prox_penalty, prox_radius)
         return (env_state, o.reshape(B * N, C), reward.reshape(B * N),
                 done.repeat_interleave(N))
 
     adapter = EnvAdapter(batched_reset=batched_reset, step=step_fn,
-                         obs_dim=C, act_dim=4)
+                         obs_dim=C, act_dim=4, generator=gen)
     override = None
+    if league:
+        pool0 = load_pool(league, hidden, C, device)
+        P = pool0.weight[0].shape[0]
+        if B % P:
+            raise ValueError(f"n_envs ({B}) must divide by the league "
+                             f"pool's size ({P})")
+        print(f"league pool ({P}): {list(league)}", flush=True)
+
+        def league_reset():
+            st = env.reset()
+            obs = env.initial_obs(st).reshape(B, N, C)
+            return LeagueState(st, obs, pool0), obs[:, 0].contiguous()
+
+        def league_step(env_state, action):
+            # env block i (of B/P) plays against pool member i
+            opp_obs = env_state.obs[:, 1:].reshape(P, (B // P) * (N - 1), C)
+            opp_act = torch.clamp(pool_forward(env_state.pool, opp_obs),
+                                  -1.0, 1.0).reshape(B, N - 1, 4)
+            act = torch.cat([action.reshape(B, 1, 4), opp_act], dim=1)
+            row, obs, reward, done = env.step(env_state.row, act)[:4]
+            if prox_penalty:
+                reward = prox_shape(obs, reward, prox_penalty, prox_radius)
+            return (LeagueState(row, obs, env_state.pool),
+                    obs[:, 0].contiguous(), reward[:, 0].contiguous(), done)
+
+        adapter = adapter._replace(batched_reset=league_reset,
+                                   step=league_step)
     if fuse_policy:
         b_reset, override, fused_step = make_policy_rollout(
             env, n_steps, kernel_chunk=kernel_chunk)
@@ -273,9 +432,20 @@ def main(argv=None):
     ap.add_argument("--fast", action="store_true",
                     help="the general race env with each step's firmware "
                          "window in the window kernel (implies --general)")
-    ap.add_argument("--league", default=None, help="not ported yet")
+    ap.add_argument("--league", default=None,
+                    help="comma-separated frozen policy .msgpack paths: "
+                         "drone 0 learns against drones 1..N-1 flying the "
+                         "pool's mean actions (env block i of n_envs/P "
+                         "takes member i); needs --compete --n_drones > 1")
+    ap.add_argument("--league_refresh", type=int, default=0,
+                    help="with --league: copy the learner into pool slot "
+                         "0 every N iterations (0 = frozen pool)")
     ap.add_argument("--prox_penalty", type=float, default=0.0,
-                    help="not ported yet")
+                    help="COMPETE self-play: reward -= w * max(0, 1 - "
+                         "d/radius), d the nearest opponent's horizontal "
+                         "distance")
+    ap.add_argument("--prox_radius", type=float, default=0.3,
+                    help="the proximity shaping's radius (m)")
     ap.add_argument("--obs", default="kin", choices=["kin", "rgb"],
                     help="'rgb' is not ported yet")
     args = ap.parse_args(argv)
@@ -289,7 +459,9 @@ def main(argv=None):
           hidden=tuple(int(x) for x in args.hidden.split(",")),
           n_drones=args.n_drones, compete=args.compete, seed=args.seed,
           device=args.device, general=args.general, league=args.league,
-          prox_penalty=args.prox_penalty, obs=args.obs, fast=args.fast)
+          league_refresh=args.league_refresh,
+          prox_penalty=args.prox_penalty, prox_radius=args.prox_radius,
+          obs=args.obs, fast=args.fast)
 
 
 if __name__ == "__main__":

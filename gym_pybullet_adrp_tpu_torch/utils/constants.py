@@ -15,10 +15,14 @@ G = 9.8
 
 # lsy-drone-racing geometry
 VISIBILITY_RANGE = 0.45
+# the scripted agents' flight heights (agents/hardcoded*.py)
+Z_LOW = 0.3
+Z_HIGH = 0.775
 
 # crazyflie firmware
 FIRMWARE_FREQ = 500
 CTRL_FREQ = 25
+CTRL_DT = 1.0 / 25
 FIRMWARE_DT = 1.0 / 500
 GYRO_LPF_CUTOFF_FREQ = 80.0
 ACCEL_LPF_CUTOFF_FREQ = 30.0

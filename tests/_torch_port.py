@@ -15,6 +15,7 @@ the tight tolerances hold on those lanes, the loose ones everywhere.
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 BLOCKS = ("S", "R", "GG", "OO", "EP")
@@ -325,3 +326,16 @@ def assert_race_obs(obs, ref, G, O):
         if chans:
             err = np.abs(obs[..., chans] - ref[..., chans]).max()
             assert err <= tol, (chans, err)
+
+
+@pytest.fixture(autouse=False, scope="module")
+def one_thread():
+    """One intra-op thread for the module's tests (their tensors are
+    small; several test workers share the host's cores), restored
+    after."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

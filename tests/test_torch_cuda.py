@@ -18,6 +18,8 @@ the same tile step as K4, so K5 and K launches of K4 are held equal bit
 for bit.
 """
 
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -31,6 +33,7 @@ from gym_pybullet_adrp_tpu_torch.ops import (
 )
 
 pytestmark = pytest.mark.cuda
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(scope="module")
@@ -144,12 +147,14 @@ def test_general_fast_path_on_the_card(dev):
 
 @pytest.mark.parametrize("cfg,n_drones,n_envs", [
     ("level1", 1, 256), ("getting_started", 2, 256),
-    ("getting_started", 1, 128), ("twogates", 4, 384), ("level2", 8, 128)])
+    ("getting_started", 1, 128), ("twogates", 4, 384), ("level2", 8, 128),
+    ("level3", 4, 128)])
 def test_race_step_kernel_matches_plain(dev, cfg, n_drones, n_envs):
     """K4 without the policy equals its plain version bit for bit, every
     output, over twelve consecutive steps: 1 to 8 COMPETE drones (8: more
     window units than a block has warps), 128 to 384 envs (fewer tiles
-    than SMs; a count that is not a multiple of 256)."""
+    than SMs; a count that is not a multiple of 256); level3 at 4 drones
+    is V1's env and, at another width, the league trainer's."""
     env = eval_race.make_eval_env(cfg, n_envs, dev, seed=2,
                                   n_drones=n_drones)
     st = env.reset()
@@ -585,3 +590,109 @@ def test_hover_kernels_batch_independent(dev, kernel, mode):
     torch.cuda.synchronize()
     for a, b in zip(big, small):
         assert torch.equal(a[..., :8, :], b)
+
+
+# ---- the public surfaces, the league and checkpoints on the card ---------
+
+
+def test_race_vector_env_equals_row_env(dev, monkeypatch):
+    """TorchRaceVectorEnv's fused backend: one race_step launch and one
+    download a step, and its outputs equal (torch.equal) to the direct
+    row env's with telemetry, from the same seed."""
+    import numpy as np
+
+    from gym_pybullet_adrp_tpu_torch.envs import race as prace
+    from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import make_row_env
+    from gym_pybullet_adrp_tpu_torch.envs.race_vector import (
+        TorchRaceVectorEnv,
+    )
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+    from gym_pybullet_adrp_tpu_torch.utils.enums import RaceMode
+
+    B, steps = 512, 24
+    gen = torch.Generator(device=dev).manual_seed(1)
+    acts = torch.rand((steps, B, 2, 4), generator=gen, device=dev) * 2 - 1
+    venv = TorchRaceVectorEnv(B, "twogates", num_drones=2, device=dev)
+    assert venv.fused_backend
+    venv.reset(seed=4)
+    acts_np = acts.cpu().numpy()
+    cpu, downloads, out = torch.Tensor.cpu, [], []
+    monkeypatch.setattr(torch.Tensor, "cpu",
+                        lambda t, *a, **k: downloads.append(1) or cpu(t))
+    before = race_step.race_step_fused.launches
+    for i in range(steps):
+        out.append(venv.step(acts_np[i]))
+    assert race_step.race_step_fused.launches - before == steps
+    assert len(downloads) == steps
+    monkeypatch.undo()
+    cfg = load_config("twogates")
+    spec = prace.RaceSpec.from_config(cfg, 2, RaceMode.COMPETE)
+    env = make_row_env(spec, prace.track_from_config(cfg, 2), B, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(4),
+                       telemetry=True, per_drone_reward=True)
+    st = env.reset()
+    for i in range(steps):
+        st, obs, rew, done, info = env.step(st, acts[i])
+        o, r, te, tr, inf = out[i]
+        for got, ref in ((o, obs), (r, rew), (te | tr, done),
+                         (te, info["terminated"]),
+                         (inf["current_gate"], info["current_gate"]),
+                         (inf["eliminated"], info["eliminated"] > 0.5),
+                         (inf["finished"], info["finished"] > 0.5),
+                         (inf["ep_steps"], info["ep_steps"])):
+            g = torch.from_numpy(np.ascontiguousarray(got)).to(dev)
+            assert torch.equal(g, ref.to(g.dtype)), i
+
+
+def test_checkpoint_resume_on_the_card(dev, tmp_path):
+    """Row trainer at 512 x 16 on the card: 1 iteration, save, 1 more
+    (unbroken) against a fresh state restored and stepped once: equal by
+    torch.equal, the env's and the learner's generators (CUDA) included."""
+    from gym_pybullet_adrp_tpu_torch import train_race
+    from gym_pybullet_adrp_tpu_torch.rl import checkpoint as ckpt
+
+    kw = dict(config="getting_started", n_envs=512, n_steps=16, device=dev,
+              log_every=0)
+    first = train_race.train(iters=1, **kw)
+    ckpt.save_checkpoint(tmp_path, first["ts"], 1)
+    whole, m_whole = first["train_step"](first["ts"])
+    fresh = train_race.train(iters=0, **kw)
+    ts, _ = ckpt.restore_checkpoint(tmp_path, fresh["ts"], device=dev)
+    assert ts.rng.device.type == "cuda" and ts.env_rng.device.type == "cuda"
+    ts, m = fresh["train_step"](ts)
+    assert float(m["loss"]) == float(m_whole["loss"])
+    for a, b in zip(ckpt._flatten(whole, []), ckpt._flatten(ts, [])):
+        for x, y in (zip(a.values(), b.values()) if isinstance(a, dict)
+                     else [(a, b)]):
+            assert (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                    else x == y)
+
+
+def test_league_iteration_launches(dev):
+    """A league iteration (level3, 4 drones COMPETE, 256 envs x 64 steps,
+    two pool members, refresh 1): 64 race_step launches, slot 0 the
+    learner after the refresh."""
+    from gym_pybullet_adrp_tpu_torch import train_race
+
+    pool = ",".join(str(REPO / f"results/{p}.msgpack")
+                    for p in ("level3_mastery", "level3_selfplay"))
+    before = race_step.race_step_fused.launches
+    res = train_race.train(config="level3", n_envs=256, n_steps=64, iters=1,
+                           n_drones=4, compete=True, end_after_gate=0,
+                           league=pool, league_refresh=1, prox_penalty=0.1,
+                           device=dev, log_every=0)
+    assert race_step.race_step_fused.launches - before == 64
+    ts = res["ts"]
+    w = ts.env_state.pool.weight[0][0]
+    assert torch.equal(w, ts.params.pi[0].weight.T)
+
+
+@pytest.mark.slow
+def test_flagship_artifact_on_the_card(dev):
+    """V1: results/level3_mastery.msgpack on level3, 128 envs x 4 drones
+    COMPETE, at the reference's cross-platform floors
+    (tests/test_learned_racing.py:139-164)."""
+    out = eval_race.evaluate(str(REPO / "results/level3_mastery.msgpack"),
+                             "level3", 128, device=dev, n_drones=4)
+    assert out["per_drone_completion_rate"] >= 0.15, out
+    assert out["mean_gates"] >= 1.2, out

@@ -193,6 +193,10 @@ def test_rl_autoreset_step_matches_jax(act, task):
 
 
 def test_rl_step_final_obs_and_pid_types_refused():
+    """The final obs of an ended episode; and the PID action types, which
+    the port refused until it had the DSL PID controller, now reset with
+    a zeroed controller state per drone (their steps are held against
+    JAX in tests/test_torch_dslpid.py)."""
     cfg, _ = _cfgs(ActionType.RPM, "hover", 1)
     p = drone.drone_params(DroneModel.CF2X, device="cpu")
     reset = rlenv.rl_reset(cfg, INIT_XYZS, INIT_RPYS, 1, device="cpu")
@@ -203,8 +207,9 @@ def test_rl_step_final_obs_and_pid_types_refused():
     assert final[:, 0, 0].gt(4.9).all() and obs[:, 0, 0].abs().lt(1e-6).all()
     for act in (ActionType.PID, ActionType.VEL, ActionType.ONE_D_PID):
         c, _ = _cfgs(act, "hover", 1)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            rlenv.rl_reset(c, INIT_XYZS, INIT_RPYS, device="cpu")
+        st = rlenv.rl_reset(c, INIT_XYZS, INIT_RPYS, device="cpu")
+        for leaf in st.ctrl:
+            assert leaf.shape == (1, 1, 3) and not leaf.any()
 
 
 # ---- tests/test_rl.py:25-94, on the port -----------------------------------

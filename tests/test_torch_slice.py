@@ -124,7 +124,11 @@ def test_package_imports_no_jax():
         "new = ['gym_pybullet_adrp_tpu_torch.' + m for m in ("
         "'train_race', 'rl.ppo', 'ops.race_rollout', 'envs.fast_hover', "
         "'envs.rl', 'ops.hover_step', 'ops.hover_variants', "
-        "'op_calibrate')]\n"
+        "'op_calibrate', 'control.dslpid', 'envs.aviary', 'envs.vector', "
+        "'envs.race_vector', 'envs.race', 'utils.utils', 'agents.base', "
+        "'agents.hardcoded', 'agents.hardcoded_twogates', 'agents.hover', "
+        "'agents.rl_agent', 'agents.rl_fulltrack', 'agents.rl_twogates', "
+        "'sim', 'rl.checkpoint')]\n"
         "missing = [m for m in new if m not in sys.modules]\n"
         "print('LOADED', bad, 'MISSING', missing)\n"
         "sys.exit(1 if bad or missing else 0)\n"
@@ -159,10 +163,13 @@ def test_kernel_wrappers_refuse_other_devices():
 
 @pytest.mark.slow
 def test_level1_policy_floor_on_cpu():
-    """The noise-hardened level1 artifact on the port's CPU path (the
-    JAX package measures 39.8% on its CPU backend, 96-100% on the TPU;
-    the port measured 96.1%)."""
+    """The noise-hardened level1 artifact on the port's CPU path, at the
+    reference's CPU pin (tests/test_learned_racing.py:107-136: the JAX
+    package measures 39.8% on its CPU backend, 96-100% on the TPU; the
+    port measured 96.1%)."""
     out = eval_race.evaluate(str(REPO / "results/level1_robust.msgpack"),
                              "level1", 128, device="cpu")
-    assert out["completion_rate"] >= 0.25, out
-    assert out["mean_gates"] >= 1.0, out
+    assert out["completion_rate"] >= 0.35, out
+    assert out["mean_lap_time"] is not None and out["mean_lap_time"] < 6.0, \
+        out
+    assert out["mean_gates"] >= 1.2, out

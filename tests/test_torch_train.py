@@ -18,9 +18,12 @@ from flax.serialization import msgpack_restore as flax_restore
 
 from gym_pybullet_adrp_tpu.models.policy import ActorCritic as FlaxAC
 from gym_pybullet_adrp_tpu.rl import checkpoint as jck
-from gym_pybullet_adrp_tpu_torch import convert, eval_race, train_race
-from gym_pybullet_adrp_tpu_torch.envs import core, fast_hover
+from gym_pybullet_adrp_tpu_torch import convert, eval_race, sim, train_race
+from gym_pybullet_adrp_tpu_torch.control import dslpid
+from gym_pybullet_adrp_tpu_torch.envs import aviary, core, fast_hover
+from gym_pybullet_adrp_tpu_torch.envs import race as prace
 from gym_pybullet_adrp_tpu_torch.envs import race_rl_rowfast as prow
+from gym_pybullet_adrp_tpu_torch.envs import race_vector, vector
 from gym_pybullet_adrp_tpu_torch.envs import rl as rlenv
 from gym_pybullet_adrp_tpu_torch.models import drone
 from gym_pybullet_adrp_tpu_torch.rl import checkpoint as pck
@@ -122,15 +125,39 @@ def test_init_reads_shipped_policy():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--league", "agents/fulltrack_policy.msgpack"],
-    ["--prox_penalty", "0.1"], ["--obs", "rgb"],
-    ["--fast", "--prox_penalty", "0.1"], ["--general", "--obs", "rgb"],
-], ids=["league", "prox_penalty", "obs_rgb", "fast", "general"])
+    ["--obs", "rgb"], ["--general", "--obs", "rgb"],
+], ids=["obs_rgb", "general"])
 def test_cli_refuses_what_is_not_ported(flag):
     """What the trainer still refuses, on the row env and on the general
-    env (``--general``, ``--fast``: ported, but not with these)."""
+    env (``--general``: ported, but not with these)."""
     with pytest.raises(NotImplementedError, match="not ported"):
         train_race.main(["--device", "cpu"] + flag)
+
+
+POLICY = str(REPO / "agents/fulltrack_policy.msgpack")
+
+
+@pytest.mark.parametrize("flag,match", [
+    (["--league", POLICY], "league needs"),
+    (["--league", POLICY, "--compete"], "league needs"),
+    (["--league", POLICY, "--n_drones", "2"], "league needs"),
+    (["--league", POLICY, "--general", "--compete"], "league needs"),
+    (["--league", POLICY, "--compete", "--n_drones", "2",
+      "--fuse_policy"], "without fuse_policy"),
+    (["--prox_penalty", "0.1"], "COMPETE self-play"),
+    (["--fast", "--prox_penalty", "0.1"], "COMPETE self-play"),
+    (["--prox_penalty", "0.1", "--n_drones", "2"], "COMPETE self-play"),
+    (["--prox_penalty", "0.1", "--compete", "--n_drones", "2",
+      "--fuse_policy"], "without fuse_policy"),
+], ids=["league-1drone", "league-1drone-compete", "league-compare",
+        "league-general", "league-fuse", "prox-1drone", "prox-fast",
+        "prox-compare", "prox-fuse"])
+def test_cli_guards_raise_value_errors(flag, match):
+    """The JAX script's guards on --league and --prox_penalty
+    (scripts/train_race.py:153-165), as ValueErrors raised before the env
+    is built."""
+    with pytest.raises(ValueError, match=match):
+        train_race.main(["--device", "cpu", "--iters", "0"] + flag)
 
 
 @pytest.mark.parametrize("fn", [
@@ -140,7 +167,13 @@ def test_cli_refuses_what_is_not_ported(flag):
     fast_hover.make_step, fast_hover.ppo_adapter, fast_hover.reset_packed,
     drone.drone_params, rlenv.rl_reset, core.core_reset,
     convert.fast_hover_state_from_numpy, convert.rl_state_from_numpy,
-    convert.drone_params_from_numpy,
+    convert.drone_params_from_numpy, convert.pid_state_from_numpy,
+    pck.restore_checkpoint, dslpid.init_state, sim.simulate,
+    aviary.AviaryBase.__init__, aviary.CtrlAviary.__init__,
+    aviary.VelocityAviary.__init__, aviary.BaseRLAviary.__init__,
+    aviary.HoverAviary.__init__, aviary.MultiHoverAviary.__init__,
+    vector.TorchVectorEnv.__init__,
+    race_vector.TorchRaceVectorEnv.__init__, prace.MultiRaceAviary.__init__,
 ], ids=lambda fn: fn.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
