@@ -25,8 +25,13 @@ drive the surfaces users call: the league trainer (the league study's
 command), a whole-state checkpoint resumed against an unbroken run,
 ``TorchRaceVectorEnv`` against the row env it runs on, ``sim.py`` with
 the scripted and a learned agent, and the flagship level3_mastery
-artifact at the reference's floors. Every phase prints its lines; any
-failed phase exits non-zero without the final result line.
+artifact at the reference's floors. Phases 23-26 drive the pixels path,
+which launches none of the kernels: the ray-casting renderer on the card
+against the CPU, the ``--obs rgb`` trainer at the camera-racing recipe's
+512 envs x 64 steps at 64x48, the shipped results/px5/full.msgpack
+through the pixels evaluator, the RGB gym classes, a conv actor-critic
+over the RGB hover adapter and a URDF round trip. Every phase prints its
+lines; any failed phase exits non-zero without the final result line.
 
 Usage (needs one CUDA device and nvcc; no JAX):
   python3 chip_smoke.py [--out DIR]
@@ -1982,6 +1987,283 @@ def phase22(dev, gpu, eval_race, kernels, plain, totals):
             "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# 23-26: the pixels path (the ray-casting renderer, the conv actor-critic,
+# the --obs rgb trainer, the pixels evaluator, the RGB gym surfaces) and
+# URDF loading. No kernel of the port runs on this path: the render and
+# the CNN are plain PyTorch (cuDNN for the convolutions, TF32 off).
+
+RENDER_RTOL = 1e-5       # depth, card against CPU
+
+
+def px_scene_and_poses(n, seed=0):
+    """A getting_started reset's scene (CPU) and ``n`` seeded camera poses
+    looking at its gates (eyes within the track's box)."""
+    from gym_pybullet_adrp_tpu_torch.envs import race as prace
+    from gym_pybullet_adrp_tpu_torch.envs import race_rl
+    from gym_pybullet_adrp_tpu_torch.ops import render
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+    from gym_pybullet_adrp_tpu_torch.utils.enums import Physics, RaceMode
+
+    cfg = load_config("getting_started")
+    spec = prace.RaceSpec.from_config(cfg, 1, RaceMode.COMPARE, Physics.PYB)
+    track = prace.track_tensors(prace.track_from_config(cfg, 1), "cpu")
+    gen = torch.Generator().manual_seed(seed)
+    rs = race_rl.rl_race_reset(spec, track, 1, generator=gen,
+                               device="cpu").race
+    scene = render.scene_from_race_state(rs.gates_actual[0],
+                                         rs.obstacles_actual[0],
+                                         rs.phys.pos[0])
+    lo, hi = torch.tensor([-1.5, -2.0, 0.1]), torch.tensor([1.5, 2.0, 1.5])
+    eye = lo + (hi - lo) * torch.rand((n, 3), generator=gen)
+    pick = torch.randint(0, rs.gates_actual.shape[1], (n,), generator=gen)
+    tgt = rs.gates_actual[0, pick, :3] + 0.5 * torch.randn((n, 3),
+                                                           generator=gen)
+    return scene, eye, tgt
+
+
+def phase23(dev, gpu, kernels, plain, totals, n_frames=512):
+    """The renderer: 64 seeded poses of the getting_started scene at 64x48
+    and 110 degrees on the card and on the CPU (seg equal in every pixel,
+    depth within RENDER_RTOL relative; a differing pixel's ray and both
+    hits are printed), then one batched render of ``n_frames``
+    velocity-camera frames of a ``n_frames``-env general state (the
+    trainer's observation) timed with CUDA events, its peak memory, and
+    its bound."""
+    from gym_pybullet_adrp_tpu_torch.envs import race as prace
+    from gym_pybullet_adrp_tpu_torch.envs import race_rl
+    from gym_pybullet_adrp_tpu_torch.ops import render
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+    from gym_pybullet_adrp_tpu_torch.utils.enums import Physics, RaceMode
+
+    scene, eye, tgt = px_scene_and_poses(64)
+    ref = render.render(scene, eye, tgt, 64, 48, 110.0)
+    card = render.Scene(*(x.to(dev) for x in scene))
+    with plain, LaunchCount(kernels, totals) as la:
+        got = [x.cpu() for x in render.render(card, eye.to(dev),
+                                              tgt.to(dev), 64, 48, 110.0)]
+    bad = (got[2] != ref[2]).nonzero()
+    if len(bad):
+        c, i, j = (int(x) for x in bad[0])
+        print(f"[23] seg differs at {len(bad)} pixels; first: camera {c} "
+              f"pixel ({i}, {j}), eye {eye[c].tolist()}, target "
+              f"{tgt[c].tolist()}: card id {int(got[2][c, i, j])} at t = "
+              f"{float(got[1][c, i, j])!r}, CPU id {int(ref[2][c, i, j])} "
+              f"at t = {float(ref[1][c, i, j])!r}", flush=True)
+    rel = float(((got[1] - ref[1]).abs() / ref[1]).max())
+    rgba_err = float((got[0] - ref[0]).abs().max())
+    ids = sorted(int(x) for x in torch.unique(ref[2]))
+    print(f"[23] render, 64 poses of getting_started at 64x48, 110 deg: "
+          f"card vs CPU: seg differs at {len(bad)} of {ref[2].numel()} "
+          f"pixels, depth max rel err {rel:.3g} (tol {RENDER_RTOL}), rgba "
+          f"max abs err {rgba_err:.3g}; ids seen {ids[:3]}..{ids[-1]}; "
+          f"launches {dict(la)}", flush=True)
+    check(not len(bad), "render: seg differs between the card and the CPU")
+    check(rel <= RENDER_RTOL, f"render: depth rel err {rel}")
+    check(not any(la.values()) and not any(plain.calls.values()),
+          "render: a kernel or plain version ran")
+
+    cfg = load_config("getting_started")
+    spec = prace.RaceSpec.from_config(cfg, 1, RaceMode.COMPARE, Physics.PYB)
+    track = prace.track_tensors(prace.track_from_config(cfg, 1), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    st = race_rl.rl_race_reset(spec, track, n_frames, generator=gen,
+                               device=dev)
+    vel = st.race.phys.vel + torch.randn(st.race.phys.vel.shape,
+                                         generator=gen, device=dev)
+    st = st._replace(race=st.race._replace(
+        phys=st.race.phys._replace(vel=vel)))
+
+    def frames():
+        return race_rl.compute_rgb_obs(spec, st, 64, 48, 110.0, "velocity")
+
+    frames()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(frames, 10, warmup=1)
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    for _ in range(10):
+        frames()
+    host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda.synchronize()
+    out = frames()
+    check(out.shape == (n_frames, 64 * 48 * 3) and bool(
+        torch.isfinite(out).all()), "render: frames")
+    ops = count_ops(frames)
+    rs = st.race
+    b = bound((rs.gates_actual, rs.obstacles_actual, rs.phys.pos,
+               rs.phys.vel, rs.phys.quat), (out,), ops)
+    print(f"[23] compute_rgb_obs, {n_frames} velocity-camera frames at "
+          f"64x48, 110 deg (getting_started, "
+          f"{scene.seg_a.shape[0]} segments, {scene.cap_center.shape[0]} "
+          f"capsules, 1 sphere masked): {ms:.4g} ms a render (CUDA events, "
+          f"10 back to back; host enqueue {host_ms:.4g} ms), peak "
+          f"{peak / 2**20:.1f} MiB over the state; bound {b['bound_ms']:.4g} "
+          f"ms ({b['bound_by']}: {b['ops']:.4g} operations / 67 TFLOP/s = "
+          f"{b['ops'] / PEAK_FLOPS * 1e3:.4g} ms, {b['bytes']} B / 3.35 "
+          f"TB/s = {b['bytes'] / PEAK_BYTES * 1e3:.4g} ms); on {gpu}",
+          flush=True)
+    return {"seg_diff": len(bad), "depth_rel": rel, "rgba_err": rgba_err,
+            "render_ms": ms, "host_ms": host_ms, "peak_bytes": peak, **b}
+
+
+def phase24(dev, gpu, kernels, plain, totals, render_ms, n_envs=512,
+            iters=3):
+    """The pixels trainer at full width, the round-5 camera-racing recipe
+    (results/px5/chain.sh, its last stage): getting_started, obs rgb,
+    64x48, 110 deg, velocity camera, 512 envs x 64 steps, full track,
+    lr decay, warm start from results/px5/g3.msgpack; ``iters``
+    iterations: finite losses, none of K1-K8 launched."""
+    from gym_pybullet_adrp_tpu_torch import train_race
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with plain, LaunchCount(kernels, totals) as la:
+        t0 = time.perf_counter()
+        res = train_race.train(
+            config="getting_started", obs="rgb", img="64x48", fov=110.0,
+            camera="velocity", n_envs=n_envs, n_steps=64, end_after_gate=0,
+            lr_decay=True, init=str(REPO / "results/px5/g3.msgpack"),
+            iters=iters, device=dev, log_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    m = res["metrics"]
+    check(all(math.isfinite(x["loss"]) for x in m), "pixels trainer: loss")
+    check(not any(la.values()) and not any(plain.calls.values()),
+          f"pixels trainer: launches {dict(la)}, plain {plain.calls}")
+    steady = res["times"][1:]
+    phase_ms = {k: 1e3 * sum(t[k] for t in steady) / len(steady)
+                for k in steady[0]}
+    rate = n_envs * 64 / (phase_ms["iteration"] / 1e3)
+    share = 64 * render_ms / phase_ms["rollout"]
+    print(f"[24] train(getting_started, obs rgb, 64x48, 110 deg, velocity, "
+          f"{n_envs} envs x 64 steps, warm start g3, {iters} iterations) in "
+          f"{wall:.1f} s: losses {[round(x['loss'], 5) for x in m]}; ms per "
+          f"iteration (2-{iters}): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in phase_ms.items())
+          + f"; {rate:.6g} env-steps/s; the render's share of the rollout "
+          f"{share:.4f} (64 renders x phase 23's {render_ms:.4g} ms); peak "
+          f"memory "
+          f"{peak / 2**30:.2f} GiB; launches of K1-K8 {dict(la)}; on {gpu}",
+          flush=True)
+    return {"phase_ms": phase_ms, "env_steps_per_sec": rate,
+            "render_share": share, "peak_bytes": peak,
+            "losses": [x["loss"] for x in m], "launches": dict(la)}
+
+
+# the platform record of results/px5/full.msgpack (results/px5/evals.jsonl,
+# VALIDATION.md:334-359): 128 of 128 envs at gate 2, mean gates 2.0; the
+# cross-platform floor asserted here
+PX5_RECORD = {"gates_hist": {"2": 128}, "mean_gates": 2.0}
+PX5_FLOOR = 1.0
+
+
+def phase25(dev, gpu, kernels, plain, totals):
+    """The pixels artifact: eval_race_rgb.evaluate(results/px5/full.msgpack,
+    getting_started, 128 envs, 64x48, 110 deg, velocity), deterministic;
+    mean gates at least PX5_FLOOR, printed beside the platform record."""
+    from gym_pybullet_adrp_tpu_torch import eval_race_rgb
+
+    with plain, LaunchCount(kernels, totals) as la:
+        t0 = time.perf_counter()
+        out = eval_race_rgb.evaluate(
+            str(REPO / "results/px5/full.msgpack"), "getting_started", 128,
+            "64x48", 110.0, "velocity", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(not any(la.values()) and not any(plain.calls.values()),
+          f"pixels evaluation: launches {dict(la)}")
+    print(f"[25] eval_race_rgb.evaluate(px5/full, getting_started, 128 envs, "
+          f"64x48, 110 deg, velocity, deterministic) in {wall:.1f} s "
+          f"({out['steps']} steps): "
+          f"{json.dumps(out)}; platform "
+          f"record {PX5_RECORD}; floor mean gates >= {PX5_FLOOR}; on {gpu}",
+          flush=True)
+    check(out["mean_gates"] >= PX5_FLOOR,
+          f"px5/full: mean gates {out['mean_gates']} < {PX5_FLOOR}")
+    return {"metrics": out, "wall_s": wall}
+
+
+def phase26(dev, gpu, kernels, plain, totals, n_envs=1024, n_steps=32):
+    """The other pixel surfaces on the card: HoverAviary and
+    MultiRaceAviary with RGB observations, _getDroneImages, one PPO
+    iteration of a CnnActorCritic over rgb_hover_adapter (``n_envs`` x
+    ``n_steps``, 64x48), and a URDF written from the CF2X registry read
+    back equal to drone_params(CF2X)."""
+    import numpy as np
+
+    from gym_pybullet_adrp_tpu_torch.envs import rl as rlenv
+    from gym_pybullet_adrp_tpu_torch.envs.aviary import HoverAviary
+    from gym_pybullet_adrp_tpu_torch.envs.core import AviaryConfig
+    from gym_pybullet_adrp_tpu_torch.envs.race import MultiRaceAviary
+    from gym_pybullet_adrp_tpu_torch.models import urdf
+    from gym_pybullet_adrp_tpu_torch.models.drone import (
+        _REGISTRY, drone_params,
+    )
+    from gym_pybullet_adrp_tpu_torch.models.policy import CnnActorCritic
+    from gym_pybullet_adrp_tpu_torch.rl import ppo
+    from gym_pybullet_adrp_tpu_torch.utils.enums import (
+        ActionType, DroneModel, ObservationType,
+    )
+
+    with plain, LaunchCount(kernels, totals) as la:
+        env = HoverAviary(obs=ObservationType.RGB, device=dev)
+        o0 = env.reset()[0]
+        o1 = env.step(np.zeros((1, 4)))[0]
+        imgs = env._getDroneImages(0)
+        race = MultiRaceAviary("getting_started", num_drones=2,
+                               obs=ObservationType.RGB, device=dev)
+        r0 = race.reset()[0]
+        r1 = race.step(np.zeros((2, 4)))[0]
+        shapes = [o0.shape, o1.shape, [x.shape for x in imgs], r0.shape,
+                  r1.shape]
+        check(o0.shape == o1.shape == (1, 48, 64, 4)
+              and imgs[0].shape == (48, 64, 4) and imgs[1].shape == (48, 64)
+              and imgs[2].shape == (48, 64)
+              and r0.shape == r1.shape == (2, 48, 64, 4),
+              f"gym RGB shapes {shapes}")
+
+        cfg = ppo.PPOConfig(n_envs=n_envs, n_steps=n_steps)
+        rl_cfg = rlenv.RLConfig(aviary=AviaryConfig(ctrl_freq=30),
+                                act_type=ActionType.ONE_D_RPM)
+        adapter = ppo.rgb_hover_adapter(
+            cfg, rl_cfg, drone_params(device=dev),
+            np.array([[0.0, 0.0, 0.1125]]), np.zeros((1, 3)), 64, 48,
+            device=dev)
+        init_fn, train_step, _ = ppo.make_ppo_core(
+            cfg, adapter, device=dev,
+            network=CnnActorCritic(adapter.act_dim, img_h=48, img_w=64))
+        ts = init_fn(0)
+        times = {}
+        ts, metrics = train_step(ts, times=times)
+        loss = float(metrics["loss"])
+        check(math.isfinite(loss), "rgb hover PPO: loss")
+
+        raw = dict(_REGISTRY[DroneModel.CF2X])
+        p = urdf.drone_params_from_urdf(urdf.write_drone_urdf(raw),
+                                        device=dev)
+        ref = drone_params(DroneModel.CF2X, device=dev)
+        same = all(torch.equal(a, b) for a, b in zip(p, ref))
+        check(same and p.mass.device == torch.device(dev),
+              "URDF round trip: params differ from drone_params(CF2X)")
+    check(not any(la.values()) and not any(plain.calls.values()),
+          f"phase 26: launches {dict(la)}")
+    print(f"[26] HoverAviary(RGB) reset/step {o0.shape}/{o1.shape}, "
+          f"_getDroneImages(0) {[x.shape for x in imgs]}, "
+          f"MultiRaceAviary(RGB, 2 drones) {r0.shape}/{r1.shape}; "
+          f"make_ppo_core(CnnActorCritic) over rgb_hover_adapter, "
+          f"{n_envs} envs x {n_steps} steps at 64x48: loss {loss:.5g}, "
+          + ", ".join(f"{k} {v * 1e3:.4g} ms" for k, v in times.items())
+          + f"; drone_params_from_urdf(write_drone_urdf(CF2X)) == "
+          f"drone_params(CF2X) on the card: {same}; on {gpu}", flush=True)
+    return {"shapes": [str(x) for x in shapes], "loss": loss,
+            "phase_ms": {k: v * 1e3 for k, v in times.items()},
+            "urdf_equal": same}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -2309,6 +2591,13 @@ def main():
         "v1": phase22(dev, gpu, eval_race, kernels, plain, main_launches),
     }
 
+    # ---- 23-26. the pixels path and URDF loading --------------------------
+    px = {"render": phase23(dev, gpu, kernels, plain, main_launches)}
+    px["trainer"] = phase24(dev, gpu, kernels, plain, main_launches,
+                            px["render"]["render_ms"])
+    px["artifact"] = phase25(dev, gpu, kernels, plain, main_launches)
+    px["surfaces"] = phase26(dev, gpu, kernels, plain, main_launches)
+
     src = "gym_pybullet_adrp_tpu_torch/csrc/"
     kernels = [
         {"name": "race_window", "route": "cuda",
@@ -2361,7 +2650,7 @@ def main():
             "seconds": {"eval_fused": t_fused, "eval_unfused": t_unfused},
             "ppo_card_vs_cpu": ppo_err, "training": train_out,
             "rollout_times": times11, "hover_ppo": hover_ppo,
-            "general": general, "surfaces": surfaces,
+            "general": general, "surfaces": surfaces, "pixels": px,
             "launches": main_launches,
         }, indent=1, default=str))
     print(gpu)

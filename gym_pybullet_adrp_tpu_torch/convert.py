@@ -10,6 +10,11 @@
   ``Linear.weight`` is (out, in), so ``weight = kernel.T``.
 * ``flax_from_actor_critic``: its inverse, the params tree of the flax
   module with the weights of a port ``ActorCritic`` (numpy float32).
+* ``cnn_actor_critic_from_flax`` / ``flax_from_cnn_actor_critic``: the
+  same for ``CnnActorCritic``. A flax Conv ``kernel`` is (kh, kw, cin,
+  cout), a ``Conv2d.weight`` (cout, cin, kh, kw): ``weight =
+  kernel.permute(3, 2, 0, 1)``. The frame size is an argument:
+  ``Dense_0``'s input width alone does not fix H and W.
 * The hover env: ``fast_hover_state_from_numpy`` (the packed (13, T, 128)
   state and its step counts), ``phys_state_from_numpy``,
   ``core_state_from_numpy`` and ``rl_state_from_numpy`` (any object with
@@ -28,7 +33,7 @@ from .envs.fast_hover import FastHoverState
 from .envs.race_rl_rowfast import RowRaceState
 from .envs.rl import RLState
 from .models.drone import DroneParams
-from .models.policy import ActorCritic
+from .models.policy import ActorCritic, CnnActorCritic
 from .ops.dynamics import PhysState
 
 _LEAVES = ("S", "R", "GG", "OO", "EP")
@@ -89,6 +94,56 @@ def flax_from_actor_critic(net: ActorCritic):
                         "bias": np32(layer.bias)}
          for i, layer in enumerate(layers)}
     p["log_std"] = np32(net.log_std)
+    return {"params": p}
+
+
+def _np32(t):
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _copy(param, x, name):
+    x = np.array(x, dtype=np.float32, order="C")
+    if x.shape != tuple(param.shape):
+        raise ValueError(f"{name}: {x.shape} does not fit "
+                         f"{tuple(param.shape)}")
+    param.copy_(torch.from_numpy(x))
+
+
+def cnn_actor_critic_from_flax(params, img_h: int,
+                               img_w: int) -> CnnActorCritic:
+    """Port a flax CnnActorCritic params tree ({"params": {"Conv_i",
+    "Dense_i", "log_std"}}) for frames of ``img_h`` x ``img_w``; channels,
+    feature width and action size are read from the kernels."""
+    p = params["params"] if "params" in params else params
+    if "Conv_0" not in p:
+        raise ValueError(f"not a CnnActorCritic params tree: {sorted(p)}")
+    k0 = np.asarray(p["Conv_0"]["kernel"])
+    net = CnnActorCritic(act_dim=np.asarray(p["Dense_1"]["kernel"]).shape[1],
+                         img_h=img_h, img_w=img_w, img_c=k0.shape[2],
+                         features=np.asarray(p["Dense_0"]["kernel"]).shape[1])
+    with torch.no_grad():
+        for i, conv in enumerate(net.convs):
+            k = np.asarray(p[f"Conv_{i}"]["kernel"]).transpose(3, 2, 0, 1)
+            _copy(conv.weight, k, f"Conv_{i}.kernel")
+            _copy(conv.bias, p[f"Conv_{i}"]["bias"], f"Conv_{i}.bias")
+        for i, layer in enumerate(net.dense_layers()):
+            _copy(layer.weight, np.asarray(p[f"Dense_{i}"]["kernel"]).T,
+                  f"Dense_{i}.kernel")
+            _copy(layer.bias, p[f"Dense_{i}"]["bias"], f"Dense_{i}.bias")
+        _copy(net.log_std, p["log_std"], "log_std")
+    return net
+
+
+def flax_from_cnn_actor_critic(net: CnnActorCritic):
+    """The flax CnnActorCritic params tree of ``net``, as float32 numpy
+    arrays."""
+    p = {f"Conv_{i}": {"kernel": np.ascontiguousarray(
+        _np32(conv.weight).transpose(2, 3, 1, 0)), "bias": _np32(conv.bias)}
+        for i, conv in enumerate(net.convs)}
+    p.update({f"Dense_{i}": {"kernel": np.ascontiguousarray(
+        _np32(layer.weight).T), "bias": _np32(layer.bias)}
+        for i, layer in enumerate(net.dense_layers())})
+    p["log_std"] = _np32(net.log_std)
     return {"params": p}
 
 

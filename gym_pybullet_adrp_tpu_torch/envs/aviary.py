@@ -15,8 +15,11 @@ when first read. ``gym_class`` makes the ``gymnasium.Env`` subclass of a
 class, which ``gym_pybullet_adrp_tpu_torch.register()`` registers under
 the reference's ids.
 
-The camera (RGB observations, ``_getDroneImages``) waits for the render
-slice (ROADMAP queue 1 item 8) and raises ``NotImplementedError``.
+The camera (JAX :148-197, :419-445): ``_getDroneImages`` renders a
+drone's POV frame with the ray-casting renderer (ops/render.py) on the
+env's device, and ``ObservationType.RGB`` observes every drone's frame
+(one batched render), captured at the reference's 24 frames a second and
+cached between captures.
 """
 
 import time
@@ -29,6 +32,7 @@ from . import core, rl
 from .core import AviaryConfig
 from ..control import dslpid
 from ..models.drone import drone_params
+from ..ops import render
 from ..utils.enums import ActionType, DroneModel, ObservationType, Physics
 
 def gym_class(cls):
@@ -37,12 +41,6 @@ def gym_class(cls):
 
     return type(cls.__name__, (cls, gymnasium.Env),
                 {"__module__": cls.__module__, "__doc__": cls.__doc__})
-
-
-def no_camera(what):
-    raise NotImplementedError(
-        f"{what} needs the ray-casting renderer, which is not ported to the "
-        "PyTorch package yet (ROADMAP.md queue 1 item 8, the pixels path)")
 
 
 class LazySpaces:
@@ -176,14 +174,44 @@ class AviaryBase(LazySpaces):
     def _getDroneStateVector(self, nth_drone: int) -> np.ndarray:
         return self._stateVector()[nth_drone]
 
+    def _phys(self):
+        """The env's ``PhysState`` (leaves (1, N, ...) on the device)."""
+        return self._state.phys
+
     # -- vision (reference BaseAviary._getDroneImages:569-621) ---------------
     IMG_RES = np.array([64, 48])
 
+    def _scene(self):
+        """The renderable scene: the ground, every drone's sphere and,
+        with obstacles on, the landmark pillars (the reference's RGB-mode
+        props, BaseRLAviary._addObstacles:106-126)."""
+        pos = self._phys().pos[0]
+        scene = render.drone_spheres(render.empty_scene(pos.dtype,
+                                                        pos.device),
+                                     pos, self.COLLISION_R)
+        return render.add_landmarks(scene) if self.OBSTACLES else scene
+
+    def _frames(self, drones):
+        """(rgba (k, H, W, 4), depth, seg) of the drones ``drones``'
+        cameras (one render, on the env's device)."""
+        ph = self._phys()
+        eye, target = render.drone_camera(ph.pos[0, drones],
+                                          ph.quat[0, drones], self.L)
+        return render.render(self._scene(), eye, target,
+                             width=int(self.IMG_RES[0]),
+                             height=int(self.IMG_RES[1]))
+
     def _getDroneImages(self, nth_drone: int, segmentation: bool = True):
-        no_camera("_getDroneImages")
+        """(rgb (H, W, 4) uint8, depth (H, W), seg (H, W)) from the n-th
+        drone's POV."""
+        rgba, depth, seg = (x[0].cpu().numpy()
+                            for x in self._frames([nth_drone]))
+        return rgba.astype(np.uint8), depth, seg
 
     def _exportImage(self, img_type, img_input, path, frame_num: int = 0):
-        no_camera("_exportImage")
+        from ..utils.rendering import export_image
+
+        return export_image(img_type, img_input, path, frame_num)
 
 
 def _state_space(num_drones, max_rpm):
@@ -295,8 +323,6 @@ class BaseRLAviary(AviaryBase):
                  obs: ObservationType = ObservationType.KIN,
                  act: ActionType = ActionType.RPM, dtype=torch.float32,
                  device="cuda"):
-        if obs == ObservationType.RGB:
-            no_camera("ObservationType.RGB")
         self.OBS_TYPE = obs
         self.ACT_TYPE = act
         self.rl_cfg = rl.RLConfig(
@@ -315,6 +341,7 @@ class BaseRLAviary(AviaryBase):
                          record=record, obstacles=True,
                          user_debug_gui=False, dtype=dtype, device=device)
         self._state = None
+        self._rgb_cache = None
 
     def _actionSpace(self):
         size = self.rl_cfg.act_size
@@ -322,6 +349,11 @@ class BaseRLAviary(AviaryBase):
         return box(-ones, ones)
 
     def _observationSpace(self):
+        if self.OBS_TYPE == ObservationType.RGB:
+            # reference BaseRLAviary._observationSpace:252-255
+            return box(0, 255, np.uint8,
+                       (self.NUM_DRONES, int(self.IMG_RES[1]),
+                        int(self.IMG_RES[0]), 4))
         # reference BaseRLAviary._observationSpace:256-277
         buf = self.rl_cfg.action_buffer_size * self.rl_cfg.act_size
         lo = np.array([-np.inf, -np.inf, 0.0] + [-np.inf] * 9 + [-1.0] * buf,
@@ -336,8 +368,28 @@ class BaseRLAviary(AviaryBase):
                                   self.INIT_RPYS, 1, self.dtype, self.device)
         self.step_counter = 0
         self.RESET_TIME = time.time()
+        self._rgb_cache = None
+        if self.OBS_TYPE == ObservationType.RGB:
+            return self._rgbObs(), self._computeInfo()
         obs = rl.compute_obs(self.rl_cfg, self._state)[0]
         return obs.cpu().numpy().astype(np.float32), self._computeInfo()
+
+    def _phys(self):
+        return self._state.core.phys
+
+    def _rgbObs(self):
+        """(N, H, W, 4) float32 drone-POV frames of uint8 values (reference
+        _computeObs:293-306), captured at 24 frames a second (every
+        control step whose counter is a multiple of the capture period)
+        and cached between captures."""
+        capture_freq = int(self.PYB_FREQ / 24)
+        period = max(capture_freq - capture_freq % self.PYB_STEPS_PER_CTRL,
+                     self.PYB_STEPS_PER_CTRL)
+        if self._rgb_cache is None or self.step_counter % period == 0:
+            rgba = self._frames(list(range(self.NUM_DRONES)))[0]
+            self._rgb_cache = (rgba.cpu().numpy().astype(np.uint8)
+                               .astype(np.float32))
+        return self._rgb_cache
 
     def step(self, action):
         self._state, obs, reward, term, trunc = rl.rl_step(
@@ -349,8 +401,9 @@ class BaseRLAviary(AviaryBase):
                             term.to(obs.dtype), trunc.to(obs.dtype)])
         packed = packed.cpu().numpy()
         n = obs[0].numel()
-        return (packed[:n].reshape(obs.shape[1:]).astype(np.float32),
-                float(packed[n]), bool(packed[n + 1] > 0.5),
+        obs_out = (self._rgbObs() if self.OBS_TYPE == ObservationType.RGB
+                   else packed[:n].reshape(obs.shape[1:]).astype(np.float32))
+        return (obs_out, float(packed[n]), bool(packed[n + 1] > 0.5),
                 bool(packed[n + 2] > 0.5), self._computeInfo())
 
     def _stateVector(self):

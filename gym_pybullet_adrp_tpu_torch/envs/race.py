@@ -37,8 +37,11 @@ from ..utils.constants import (
     CTRL_FREQ, DEG_TO_RAD, FIRMWARE_FREQ, VISIBILITY_RANGE,
 )
 from ..utils.device_consts import const
-from ..utils.enums import Command, DroneModel, Physics, RaceMode
-from .aviary import LazySpaces, box, no_camera
+from ..ops import render
+from ..utils.enums import (
+    Command, DroneModel, ObservationType, Physics, RaceMode,
+)
+from .aviary import LazySpaces, box
 
 
 @dataclass(frozen=True)
@@ -573,8 +576,9 @@ class MultiRaceAviary(LazySpaces):
     ``reseed_on_reset`` is False), as the JAX class keys ``jax.random``.
 
     Like envs/aviary.py's classes it imports gymnasium only when its
-    spaces are read; the RGB observation waits for the render slice
-    (ROADMAP queue 1 item 8) and raises ``NotImplementedError``."""
+    spaces are read. With ``obs=ObservationType.RGB`` it observes every
+    drone's POV frame of the race scene (JAX :809-832), rendered in one
+    call on the env's device."""
 
     metadata = {"render_modes": []}
 
@@ -584,14 +588,10 @@ class MultiRaceAviary(LazySpaces):
                  gui: bool = False, record: bool = False,
                  racemode: RaceMode = RaceMode.COMPARE, obs=None, act=None,
                  dtype=torch.float32, device="cuda"):
-        from ..utils.enums import ObservationType
-
         if isinstance(race_config, str):
             from ..utils.config import load_config
 
             race_config = load_config(race_config)
-        if obs == ObservationType.RGB:
-            no_camera("ObservationType.RGB")
         self.config = race_config
         self.observation_type = obs or ObservationType.KIN
         self.IMG_RES = np.array([64, 48])
@@ -626,6 +626,11 @@ class MultiRaceAviary(LazySpaces):
         return box(-lim, lim, dtype=float)
 
     def _observationSpace(self):
+        if self.observation_type == ObservationType.RGB:
+            # reference _observationSpace:300-304 (latent RGB branch)
+            return box(0, 255, np.uint8,
+                       (self.NUM_DRONES, int(self.IMG_RES[1]),
+                        int(self.IMG_RES[0]), 4))
         G, O = self.spec_.num_gates, self.spec_.num_obstacles
         lo = np.concatenate([
             [-5] * 3, [-np.pi] * 3, [-10] * 3, [-10] * 3,
@@ -666,8 +671,30 @@ class MultiRaceAviary(LazySpaces):
                                  generator=self._gen, device=self.device,
                                  dtype=self.dtype)
         self.step_counter = 0
+        if self._rgb:
+            return self._rgbObs(), {"answer": 42}
         obs = compute_obs(self.spec_, self._track, self._state)[0]
         return obs.cpu().numpy().astype(np.float64), {"answer": 42}
+
+    @property
+    def _rgb(self):
+        return self.observation_type == ObservationType.RGB
+
+    def _rgbObs(self):
+        """(N, H, W, 4) float32 frames in [0, 255], drone i's from its own
+        camera (reference _computeObs RGB branch, :574-588; the JAX
+        package's :809-832), every drone's sphere in the scene."""
+        from ..ops import render
+
+        st = self._state
+        scene = render.scene_from_race_state(
+            st.gates_actual[0], st.obstacles_actual[0], st.phys.pos[0])
+        eye, target = render.drone_camera(st.phys.pos[0], st.phys.quat[0],
+                                          st.drone.arm[0])
+        rgba, _, _ = render.render(scene, eye, target,
+                                   width=int(self.IMG_RES[0]),
+                                   height=int(self.IMG_RES[1]))
+        return rgba.cpu().numpy().astype(np.float32)
 
     def _commands(self, action):
         """(cmd ids (N,), args (N, ARGS_DIM)) on the host: FULLSTATE
@@ -706,7 +733,9 @@ class MultiRaceAviary(LazySpaces):
                             trunc.to(dt), info["task_completed"].to(dt)])
         packed = packed.cpu().numpy().astype(np.float64)
         tail = packed[-4:]
-        return (packed[:-4].reshape(self.NUM_DRONES, -1), float(tail[0]),
+        obs_out = (self._rgbObs() if self._rgb
+                   else packed[:-4].reshape(self.NUM_DRONES, -1))
+        return (obs_out, float(tail[0]),
                 bool(tail[1] > 0.5), bool(tail[2] > 0.5),
                 {"answer": 42, "task_completed": bool(tail[3] > 0.5)})
 

@@ -1,9 +1,9 @@
 """The general race env as an RL env: shaped reward, autoreset, batch step.
 
 Counterpart of gym_pybullet_adrp_tpu/envs/race_rl.py (``ACTION_SCALE``,
-``RaceRLState``, ``rl_race_reset`` :38, ``quat_rotate_x`` :108,
-``shaped_reward`` :115, ``rl_race_step`` :149, ``autoreset_race_step``
-:191, ``batched_rl_race_step`` :210) without the RGB observation. The
+``RaceRLState``, ``rl_race_reset`` :38, ``compute_rgb_obs`` :50,
+``quat_rotate_x`` :108, ``shaped_reward`` :115, ``rl_race_step`` :149,
+``autoreset_race_step`` :191, ``batched_rl_race_step`` :210). The
 policy's action in [-1, 1]^4 is scaled by [1, 1, 1, pi], its yaw zeroed,
 and added to the drone's pose as a FULLSTATE target (the reference's
 RLController); the reward is the reference RewardWrapper's drone-0
@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import quat as quat_ops
+from ..ops import render
 from ..utils.device_consts import const
 from . import race as race_mod
 from . import race_fast
@@ -52,11 +52,47 @@ def rl_race_reset(spec: RaceSpec, track: RaceTrack, B: int, draws=None,
                        previous_pos=obs[:, 0, 0:3])
 
 
+def compute_rgb_obs(spec: RaceSpec, state: RaceRLState, width: int = 32,
+                    height: int = 24, fov_deg: float = 60.0,
+                    camera: str = "body"):
+    """Drone 0's POV frame of each env's race scene (the actual gates,
+    obstacles and the other drones, ray-cast by ops/render.py), flat
+    (B, H*W*3) in [0, 1], on the state's device. The camera drone's own
+    sphere is masked out (the eye sits inside it).
+
+    ``camera``: "body" is the reference's rig, the eye ``arm`` above the
+    drone looking along body +x (reference _getDroneImages:596-603);
+    "velocity" a gimbal facing along the horizontal velocity, body +x
+    below 0.05 m/s (the JAX package's documented deviation for
+    camera-based racing, VALIDATION section 5)."""
+    rs = state.race
+    pos = rs.phys.pos[:, 0]
+    B, N = rs.phys.pos.shape[:2]
+    scene = render.scene_from_race_state(rs.gates_actual,
+                                         rs.obstacles_actual, rs.phys.pos)
+    scene = scene._replace(
+        sph_valid=torch.arange(N, device=pos.device) != 0)
+    arm = rs.drone.arm.reshape(B, -1)[:, 0]
+    if camera == "velocity":
+        hv = rs.phys.vel[:, 0].clone()
+        hv[:, 2] = 0.0
+        n = render.norm3(hv)
+        fwd = torch.where(n > 0.05, hv / torch.clamp_min(n, 1e-6),
+                          quat_rotate_x(rs.phys.quat[:, 0]))
+        eye = render.camera_above(pos, arm)
+        target = pos + fwd * 1000.0
+    elif camera == "body":
+        eye, target = render.drone_camera(pos, rs.phys.quat[:, 0], arm)
+    else:
+        raise ValueError(f"camera must be 'body' or 'velocity': {camera!r}")
+    rgba, _, _ = render.render(scene, eye, target, width=width,
+                               height=height, fov_deg=fov_deg)
+    return (rgba[..., :3] / 255.0).reshape(B, -1)
+
+
 def quat_rotate_x(q):
     """Unit body +x axis in the world frame (the body camera's forward)."""
-    x = torch.zeros(q.shape[:-1] + (3,), dtype=q.dtype, device=q.device)
-    x[..., 0] = 1.0
-    return quat_ops.rotate(q, x)
+    return render.rotate(q, const((1.0, 0.0, 0.0), q.dtype, q.device))
 
 
 def shaped_reward(spec: RaceSpec, state: RaceRLState, obs, terminated,

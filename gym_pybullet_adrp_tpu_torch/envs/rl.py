@@ -2,7 +2,8 @@
 
 Counterpart of gym_pybullet_adrp_tpu/envs/rl.py (``RLConfig`` :42,
 ``RLState`` :68, ``hover_target`` :77, ``rl_reset`` :92,
-``preprocess_action`` :105, ``compute_obs`` :159, ``compute_reward``
+``preprocess_action`` :105, ``compute_obs`` :159, ``compute_rgb_obs``
+:168, ``compute_reward``
 :208, ``compute_terminated`` :216, ``compute_truncated`` :224,
 ``rl_step`` :243, ``autoreset_step_with_final`` :266, ``autoreset_step``
 :289), batched: every function takes and returns a leading env axis B.
@@ -12,7 +13,8 @@ tensor in the state.
 Every action type of the JAX package: RPM and ONE_D_RPM scale the hover
 RPM; PID, VEL and ONE_D_PID run the DSL PID controller
 (``control/dslpid.py``), whose state ``RLState.ctrl`` carries per drone.
-The RGB observation (``compute_rgb_obs``) waits for the render slice.
+``compute_rgb_obs`` renders drone 0's POV frame of every env at once
+(ops/render.py).
 """
 
 from dataclasses import dataclass, field
@@ -25,6 +27,7 @@ from . import core
 from .core import AviaryConfig, CoreState
 from ..control import dslpid
 from ..models.drone import DroneParams
+from ..ops import render
 from ..utils.enums import ActionType, DroneModel, ObservationType
 
 
@@ -156,6 +159,26 @@ def compute_obs(cfg: RLConfig, state: RLState) -> torch.Tensor:
     B, _, n, _ = buf.shape
     buf = buf.permute(0, 2, 1, 3).reshape(B, n, -1)
     return torch.cat([obs12, buf], dim=-1)
+
+
+def compute_rgb_obs(cfg: RLConfig, params: DroneParams, state: RLState,
+                    width: int = 32, height: int = 24) -> torch.Tensor:
+    """Drone 0's POV frame of each env, flat (B, H*W*3) in [0, 1], on the
+    state's device: the checkerboard ground, the 4 landmark pillars (the
+    reference's RGB-mode props, BaseRLAviary._addObstacles:106-126) and,
+    with N > 1, the other drones (the camera drone's own sphere masked
+    out: the eye sits inside it). The reference's RGB observation mode
+    (BaseRLAviary._computeObs:284-305) copied host camera frames."""
+    pos, quat = state.core.phys.pos, state.core.phys.quat
+    B, n = pos.shape[:2]
+    scene = render.add_landmarks(render.empty_scene(pos.dtype, pos.device))
+    if n > 1:
+        scene = render.drone_spheres(
+            scene, pos, valid=torch.arange(n, device=pos.device) != 0)
+    eye, target = render.drone_camera(pos[:, 0], quat[:, 0], params.arm)
+    rgba, _, _ = render.render(scene, eye, target, width=width,
+                               height=height)
+    return (rgba[..., :3] / 255.0).reshape(B, -1)
 
 
 def _target_err(state: RLState):

@@ -3,7 +3,7 @@ read and written without flax or msgpack.
 
 Counterpart of gym_pybullet_adrp_tpu.rl.checkpoint (``save_checkpoint``
 :19, ``restore_checkpoint`` :33, ``save_policy`` :47, ``load_policy``
-:58).
+:58), for the MLP and the pixel actor-critic alike.
 
 ``save_checkpoint`` writes a ``rl.ppo.TrainState`` with ``torch.save``
 into ``<path>/<step>/train_state.pt`` (the JAX package writes orbax
@@ -185,13 +185,18 @@ def msgpack_pack(obj) -> bytes:
 
 
 def save_policy(path, net):
-    """Write ``net`` (the port's ``ActorCritic``) as a flax-msgpack policy
-    artifact at ``path`` (creating its directory); returns the path."""
-    from ..convert import flax_from_actor_critic
+    """Write ``net`` (the port's ``ActorCritic`` or ``CnnActorCritic``)
+    as a flax-msgpack policy artifact at ``path`` (creating its
+    directory), which the JAX package's ``load_policy`` reads; returns
+    the path."""
+    from ..convert import flax_from_actor_critic, flax_from_cnn_actor_critic
+    from ..models.policy import CnnActorCritic
 
+    tree = (flax_from_cnn_actor_critic(net) if isinstance(net, CnnActorCritic)
+            else flax_from_actor_critic(net))
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(msgpack_pack(flax_from_actor_critic(net)))
+    path.write_bytes(msgpack_pack(tree))
     return path
 
 
@@ -200,13 +205,21 @@ def load_params(path):
     return msgpack_restore(Path(path).read_bytes())
 
 
-def load_policy(path, device="cuda"):
-    """An ``ActorCritic`` on ``device`` (the card unless the caller asks
-    for the CPU) with the weights of a flax ActorCritic artifact (tower
-    widths taken from the artifact)."""
-    from ..convert import actor_critic_from_flax
+def load_policy(path, device="cuda", img=None):
+    """The policy of a flax artifact on ``device`` (the card unless the
+    caller asks for the CPU): an ``ActorCritic`` (tower widths taken from
+    the artifact), or, where the tree has convolutions, a
+    ``CnnActorCritic`` for frames of ``img`` = (height, width), which the
+    caller must then give (the weights do not fix the frame size)."""
+    from ..convert import actor_critic_from_flax, cnn_actor_critic_from_flax
 
-    return actor_critic_from_flax(load_params(path)).to(device)
+    params = load_params(path)
+    if "Conv_0" in params.get("params", params):
+        if img is None:
+            raise ValueError(f"{path}: a pixel policy; give its frame size "
+                             "as img=(height, width)")
+        return cnn_actor_critic_from_flax(params, *img).to(device)
+    return actor_critic_from_flax(params).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 Counterpart of gym_pybullet_adrp_tpu/rl/ppo.py (``PPOConfig`` :34,
 ``EnvAdapter`` :82, ``Transition`` :98, ``TrainState`` :107, ``ppo_loss``
 :117, ``grouped_update`` :135, ``make_ppo_core`` :162, ``hover_adapter``
-:378, ``make_ppo`` :444, ``flatten_obs`` :458). The JAX package
+:378, ``rgb_hover_adapter`` :413, ``make_ppo`` :444, ``flatten_obs``
+:458). The JAX package
 computes the learner in XLA, outside any Pallas kernel, so here it is
 plain PyTorch with autograd: GAE as a reverse loop over time, then
 ``n_epochs`` x ``n_minibatches`` clipped-surrogate updates on block-
@@ -20,10 +21,12 @@ JAX splits keys instead, so the two packages give different streams
 from one seed.
 
 The learner runs in float32. On the card that needs
-``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default),
-which ``train_race.train`` sets.
+``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default)
+and, for the pixel policy's convolutions, ``torch.backends.cudnn.
+allow_tf32 = False`` (on by default), which ``train_race.train`` sets.
 """
 
+import copy
 import time
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
@@ -250,11 +253,16 @@ def minibatch_epoch(cfg: PPOConfig, tx, net, opt_state, traj, advantages,
 
 
 def make_ppo_core(cfg: PPOConfig, adapter: EnvAdapter, hidden=(64, 64),
-                  rollout_override=None, device="cuda"):
+                  rollout_override=None, device="cuda", network=None):
     """Build ``(init_fn, train_step, eval_rollout)`` for any EnvAdapter.
 
-    ``init_fn(seed) -> TrainState``. ``train_step(ts, times=None) -> (ts,
-    metrics)`` runs one PPO iteration; with a ``times`` dict it also
+    ``init_fn(seed) -> TrainState``: the policy is an ``ActorCritic`` of
+    ``hidden`` widths, or, when ``network`` (a module with the same
+    ``(mean, log_std, value)`` contract and a ``reset_parameters(
+    generator)``, e.g. ``CnnActorCritic`` for pixel observations) is
+    given, a copy of it with weights drawn from the seed, as the JAX
+    package's ``network.init`` draws them from its key.
+    ``train_step(ts, times=None) -> (ts, metrics)`` runs one PPO iteration; with a ``times`` dict it also
     records the seconds of its phases ("rollout", "gae", "update"),
     synchronising the device at each boundary. ``eval_rollout(net,
     n_steps) -> (n_envs,)`` is each env's deterministic (mean-action)
@@ -273,8 +281,13 @@ def make_ppo_core(cfg: PPOConfig, adapter: EnvAdapter, hidden=(64, 64),
 
     def init_fn(seed=0):
         gen = torch.Generator().manual_seed(seed)
-        net = ActorCritic(adapter.obs_dim, adapter.act_dim, hidden,
-                          generator=gen).to(device)
+        if network is None:
+            net = ActorCritic(adapter.obs_dim, adapter.act_dim, hidden,
+                              generator=gen)
+        else:
+            net = copy.deepcopy(network)
+            net.reset_parameters(gen)
+        net = net.to(device)
         rng = torch.Generator(device=device)
         rng.manual_seed(seed)
         env_state, obs = adapter.batched_reset()
@@ -402,6 +415,33 @@ def hover_adapter(cfg: PPOConfig, rl_cfg: rlenv.RLConfig,
     return EnvAdapter(batched_reset=batched_reset, step=step,
                       obs_dim=n_drones * rl_cfg.obs_size,
                       act_dim=n_drones * rl_cfg.act_size)
+
+
+def rgb_hover_adapter(cfg: PPOConfig, rl_cfg: rlenv.RLConfig,
+                      params: DroneParams, init_xyzs, init_rpys,
+                      width: int = 32, height: int = 24,
+                      device="cuda") -> EnvAdapter:
+    """Pixels-to-actions hover: ``hover_adapter``'s env with drone 0's POV
+    frame (``rl.compute_rgb_obs``, every env in one render) as the
+    observation; after a done the frame is the reset state's. Pair with
+    ``CnnActorCritic(act_dim, img_h=height, img_w=width)``."""
+    kin = hover_adapter(cfg, rl_cfg, params, init_xyzs, init_rpys,
+                        device=device)
+
+    def frames(env_state):
+        return rlenv.compute_rgb_obs(rl_cfg, params, env_state, width,
+                                     height)
+
+    def batched_reset():
+        env_state, _ = kin.batched_reset()
+        return env_state, frames(env_state)
+
+    def step(env_state, action):
+        env_state, _, reward, done = kin.step(env_state, action)
+        return env_state, frames(env_state), reward, done
+
+    return EnvAdapter(batched_reset=batched_reset, step=step,
+                      obs_dim=height * width * 3, act_dim=kin.act_dim)
 
 
 def make_ppo(cfg: PPOConfig, rl_cfg: rlenv.RLConfig, params: DroneParams,

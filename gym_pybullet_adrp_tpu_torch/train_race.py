@@ -30,9 +30,16 @@ script shape the self-play (:61-66, :95-110, :222-330, :400-410):
   learner into pool slot 0 every k iterations.
 
 Both compute outside the kernel, between its launches (one race_step
-launch a step), so they do not combine with ``--fuse_policy``. The
-JAX script's guards on them raise ``ValueError`` here. ``--obs rgb`` is
-not ported yet and is refused with an error.
+launch a step), so they do not combine with ``--fuse_policy``.
+
+``--obs rgb`` (camera-based racing, the JAX script's :362-386) trains
+on the general env (eager, one drone): each step renders drone 0's POV
+frame of every env from the post-step (post-autoreset) state
+(envs/race_rl.compute_rgb_obs, ``--img WxH``, ``--fov``, ``--camera
+body|velocity``), and the policy is a ``CnnActorCritic``. The
+convolutions run in full float32 on the card (cuDNN's TF32 off). It
+launches none of the port's kernels. The JAX script's guards raise
+``ValueError`` here, these among them.
 
 Usage:
   python -m gym_pybullet_adrp_tpu_torch.train_race \\
@@ -41,6 +48,10 @@ Usage:
   python -m gym_pybullet_adrp_tpu_torch.train_race --config level3 \\
       --compete --n_drones 4 --n_envs 1024 --end_after_gate 0 \\
       --league results/level3_mastery.msgpack,results/level3_selfplay.msgpack
+  python -m gym_pybullet_adrp_tpu_torch.train_race \\
+      --config getting_started --obs rgb --img 64x48 --fov 110 \\
+      --camera velocity --n_envs 512 --n_steps 64 --lr_decay \\
+      --init results/px5/g3.msgpack --end_after_gate 0
 """
 
 import argparse
@@ -56,16 +67,11 @@ from .envs import race_fast, race_rl
 from .envs.race_rl_rowfast import (
     RowRaceState, make_policy_rollout, make_row_env,
 )
+from .models.policy import CnnActorCritic
 from .rl import checkpoint as ckpt
 from .rl.ppo import EnvAdapter, PPOConfig, make_ppo_core
 from .utils.config import load_config
 from .utils.enums import Physics, RaceMode
-
-
-def _not_ported(what):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md); "
-        "the JAX package's scripts/train_race.py has it")
 
 
 def train(config="twogates", n_envs=256, iters=200, n_steps=64,
@@ -75,7 +81,7 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
           hidden=(64, 64), n_drones=1, compete=False, seed=0,
           device="cuda", log_every=10, general=False, league=None,
           league_refresh=0, prox_penalty=0.0, prox_radius=0.3, obs="kin",
-          fast=False):
+          fast=False, img="32x24", fov=60.0, camera="body"):
     """Train a race policy with PPO; returns a dict with ``metrics`` (one
     dict of floats per iteration: loss, mean_episode_return, mean_reward,
     steps), ``times`` (per iteration, the seconds of its phases:
@@ -88,19 +94,29 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
     ``GeneralEnv``. ``league`` (comma-separated policy paths, or a list)
     trains drone 0 against a frozen pool (``ts.env_state`` is then a
     ``LeagueState``), refreshed every ``league_refresh`` iterations;
-    ``prox_penalty`` shapes COMPETE self-play rewards (``prox_shape``)."""
-    general = general or fast
+    ``prox_penalty`` shapes COMPETE self-play rewards (``prox_shape``).
+    ``obs="rgb"`` trains a ``CnnActorCritic`` on drone-POV frames of
+    ``img`` ("WxH") at vertical field of view ``fov`` from ``camera``
+    ("body" or "velocity") on the general env."""
     if isinstance(league, str):
         league = [p for p in league.split(",") if p]
-    if obs != "kin":
-        _not_ported("--obs rgb")
+    if obs not in ("kin", "rgb"):
+        raise ValueError(f"obs must be 'kin' or 'rgb': {obs!r}")
+    rgb = obs == "rgb"
+    # the JAX script's guards (scripts/train_race.py:151-165)
+    if rgb and (fast or fuse_policy):
+        raise ValueError("obs rgb runs on the general env's eager step (no "
+                         "fast, no fuse_policy)")
+    if rgb and n_drones > 1:
+        raise ValueError("obs rgb trains one drone on the general env; "
+                         "n_drones > 1 is the row env's self-play")
+    general = general or fast or rgb
     if general and n_drones > 1:
         raise ValueError("n_drones > 1 trains on the row env (self-play); "
                          "the general env takes one drone")
     if general and fuse_policy:
         raise ValueError("fuse_policy runs the policy inside the row env's "
                          "kernels; the general env runs it outside")
-    # the JAX script's guards (scripts/train_race.py:153-165)
     if prox_penalty and not (n_drones > 1 and compete):
         raise ValueError("prox_penalty needs COMPETE self-play (compete, "
                          "n_drones > 1): it reads the opponent-pose "
@@ -116,8 +132,10 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
                          "the kernel's launches; use it without fuse_policy")
     device = torch.device(device)
     if device.type == "cuda":
-        # the learner's matmuls in full float32 (PyTorch's default, stated)
+        # the learner's matmuls (PyTorch's default, stated) and the pixel
+        # policy's convolutions (cuDNN's default is TF32) in full float32
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     hidden = tuple(int(h) for h in hidden)
     cfg_yaml = load_config(config)
     mode = RaceMode.COMPETE if compete else RaceMode.COMPARE
@@ -158,14 +176,23 @@ def train(config="twogates", n_envs=256, iters=200, n_steps=64,
             elim_penalty, hidden, fuse_policy, kernel_chunk,
             prox_penalty, prox_radius, league)
     C = spec.obs_size
+    network = None
+    if rgb:
+        W, H = (int(x) for x in img.split("x"))
+        adapter = rgb_adapter(adapter, spec, W, H, fov, camera)
+        network = CnnActorCritic(4, img_h=H, img_w=W)
 
     init_fn, train_step, _ = make_ppo_core(
         cfg, adapter, hidden=hidden, rollout_override=rollout_override,
-        device=device)
+        device=device, network=network)
     ts = init_fn(ppo_seed)
     if init:
-        warm = ckpt.load_policy(init, device)
-        if warm.hidden != hidden or warm.obs_dim != C:
+        warm = ckpt.load_policy(init, device, img=(H, W) if rgb else None)
+        if rgb:
+            if warm.features != network.features:
+                raise ValueError(f"{init}: {warm.features} features, not "
+                                 f"{network.features}")
+        elif warm.hidden != hidden or warm.obs_dim != C:
             raise ValueError(f"{init}: widths {warm.obs_dim}-{warm.hidden} "
                              f"do not fit {C}-{hidden}")
         ts.params.load_state_dict(warm.state_dict())
@@ -350,6 +377,27 @@ def _row_adapter(spec, track, n_envs, n_steps, device, gen, end_after_gate,
     return env, adapter, override
 
 
+def rgb_adapter(adapter: EnvAdapter, spec, width, height, fov,
+                camera) -> EnvAdapter:
+    """``adapter`` (the general env's) with drone 0's POV frame of every
+    env, rendered from the post-step (post-autoreset) state, as the
+    observation (scripts/train_race.py:362-386)."""
+    def frames(env_state):
+        return race_rl.compute_rgb_obs(spec, env_state, width, height, fov,
+                                       camera)
+
+    def reset():
+        env_state, _ = adapter.batched_reset()
+        return env_state, frames(env_state)
+
+    def step(env_state, action):
+        env_state, _, reward, done = adapter.step(env_state, action)
+        return env_state, frames(env_state), reward, done
+
+    return adapter._replace(batched_reset=reset, step=step,
+                            obs_dim=height * width * 3)
+
+
 class GeneralEnv:
     """The general race env of ``train``'s ``general`` path: B envs of one
     drone (envs/race_rl.py), drawing its resets and disturbances from
@@ -447,7 +495,18 @@ def main(argv=None):
     ap.add_argument("--prox_radius", type=float, default=0.3,
                     help="the proximity shaping's radius (m)")
     ap.add_argument("--obs", default="kin", choices=["kin", "rgb"],
-                    help="'rgb' is not ported yet")
+                    help="'rgb': camera-based racing, drone-POV frames "
+                         "ray-cast each step and a conv actor-critic "
+                         "(the general env, one drone)")
+    ap.add_argument("--img", default="32x24",
+                    help="with --obs rgb: frame WxH (the reference "
+                         "camera's: 64x48)")
+    ap.add_argument("--fov", type=float, default=60.0,
+                    help="with --obs rgb: vertical field of view, degrees")
+    ap.add_argument("--camera", default="body", choices=["body", "velocity"],
+                    help="with --obs rgb: 'body' looks along body +x (the "
+                         "reference rig), 'velocity' along the horizontal "
+                         "velocity")
     args = ap.parse_args(argv)
     train(config=args.config, n_envs=args.n_envs, iters=args.iters,
           n_steps=args.n_steps, end_after_gate=args.end_after_gate,
@@ -461,7 +520,8 @@ def main(argv=None):
           device=args.device, general=args.general, league=args.league,
           league_refresh=args.league_refresh,
           prox_penalty=args.prox_penalty, prox_radius=args.prox_radius,
-          obs=args.obs, fast=args.fast)
+          obs=args.obs, fast=args.fast, img=args.img, fov=args.fov,
+          camera=args.camera)
 
 
 if __name__ == "__main__":

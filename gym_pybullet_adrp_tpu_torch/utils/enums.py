@@ -52,6 +52,15 @@ class ObservationType(Enum):
     RGB = "rgb"
 
 
+class ImageType(IntEnum):
+    """Camera capture image type (reference utils/enums.py:30-36)."""
+
+    RGB = 0
+    DEP = 1
+    SEG = 2
+    BW = 3
+
+
 class Command(IntEnum):
     """High-level commander commands (control/commander.py)."""
 

@@ -16,6 +16,11 @@ cosf/sinf), and bit for bit on every lane group at the general
 trainer's, level1's and 65536 agents. K5 runs
 the same tile step as K4, so K5 and K launches of K4 are held equal bit
 for bit.
+
+The pixels path has no kernel of the port: the renderer on the card is
+held against itself on the CPU (seg equal in every pixel, depth 1e-5
+relative), and the shipped pixel policies' heads on the card (cuDNN, TF32
+off) within 1e-5 of the CPU's.
 """
 
 from pathlib import Path
@@ -696,3 +701,72 @@ def test_flagship_artifact_on_the_card(dev):
                              "level3", 128, device=dev, n_drones=4)
     assert out["per_drone_completion_rate"] >= 0.15, out
     assert out["mean_gates"] >= 1.2, out
+
+
+# ---- the pixels path (no kernel of the port: plain PyTorch on the card) ----
+
+def _race_scene_and_poses(n, seed=0):
+    """A getting_started reset's scene (CPU) and ``n`` seeded camera
+    poses looking at its gates."""
+    from gym_pybullet_adrp_tpu_torch.envs import race as prace
+    from gym_pybullet_adrp_tpu_torch.envs import race_rl
+    from gym_pybullet_adrp_tpu_torch.ops import render
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+    from gym_pybullet_adrp_tpu_torch.utils.enums import Physics, RaceMode
+
+    cfg = load_config("getting_started")
+    spec = prace.RaceSpec.from_config(cfg, 1, RaceMode.COMPARE, Physics.PYB)
+    track = prace.track_tensors(prace.track_from_config(cfg, 1), "cpu")
+    gen = torch.Generator().manual_seed(seed)
+    rs = race_rl.rl_race_reset(spec, track, 1, generator=gen,
+                               device="cpu").race
+    scene = render.scene_from_race_state(rs.gates_actual[0],
+                                         rs.obstacles_actual[0],
+                                         rs.phys.pos[0])
+    lo, hi = torch.tensor([-1.5, -2.0, 0.1]), torch.tensor([1.5, 2.0, 1.5])
+    eye = lo + (hi - lo) * torch.rand((n, 3), generator=gen)
+    pick = torch.randint(0, rs.gates_actual.shape[1], (n,), generator=gen)
+    tgt = rs.gates_actual[0, pick, :3] + 0.5 * torch.randn((n, 3),
+                                                           generator=gen)
+    return scene, eye, tgt
+
+
+def test_render_card_equals_cpu(dev):
+    """The renderer on the card against itself on the CPU, 64 poses of
+    the getting_started scene at 64x48 and 110 degrees: seg equal in
+    every pixel, depth within 1e-5 relative (every operation is rounded
+    alike on both; square roots correctly rounded on both)."""
+    from gym_pybullet_adrp_tpu_torch.ops import render
+
+    scene, eye, tgt = _race_scene_and_poses(64)
+    ref = render.render(scene, eye, tgt, 64, 48, 110.0)
+    on_card = render.Scene(*(x.to(dev) for x in scene))
+    got = [x.cpu() for x in render.render(on_card, eye.to(dev), tgt.to(dev),
+                                          64, 48, 110.0)]
+    assert torch.equal(got[2], ref[2])
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("name,h,w", [
+    ("agents/example_pixels_policy.msgpack", 24, 32),
+    ("results/px5/full.msgpack", 48, 64)], ids=["32x24", "64x48"])
+def test_cnn_card_matches_cpu(dev, name, h, w):
+    """A shipped pixel policy's heads on the card (cuDNN with TF32 off, as
+    train_race.train sets it) within 1e-5 of the CPU's on 512 frames:
+    float32 both, only the summation order differs."""
+    from gym_pybullet_adrp_tpu_torch.rl import checkpoint as pck
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        net = pck.load_policy(REPO / name, device="cpu", img=(h, w))
+        obs = torch.rand((512, h * w * 3),
+                         generator=torch.Generator().manual_seed(h))
+        with torch.no_grad():
+            ref = [x.clone() for x in net(obs)]
+            got = net.to(dev)(obs.to(dev))
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

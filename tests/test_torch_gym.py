@@ -94,14 +94,18 @@ def test_aviary_matches_jax(case):
 
 
 def test_aviary_camera_refused():
+    """The camera, refused until the renderer was ported: now an RGB
+    ``HoverAviary`` builds and ``CtrlAviary`` renders its drone's POV
+    (frame, depth and seg of the reference's 64x48; the frames' values
+    are held against the JAX classes in tests/test_torch_pixels.py)."""
     from gym_pybullet_adrp_tpu_torch.utils.enums import ObservationType
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pav.HoverAviary(obs=ObservationType.RGB, device="cpu")
+    env = pav.HoverAviary(obs=ObservationType.RGB, device="cpu")
+    assert env.reset()[0].shape == (1, 48, 64, 4)
     env = pav.CtrlAviary(device="cpu")
     env.reset()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        env._getDroneImages(0)
+    rgb, dep, seg = env._getDroneImages(0)
+    assert rgb.shape == (48, 64, 4) and dep.shape == seg.shape == (48, 64)
 
 
 @pytest.mark.parametrize("task", ["hover", "multihover"])

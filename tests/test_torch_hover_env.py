@@ -192,7 +192,7 @@ def test_rl_autoreset_step_matches_jax(act, task):
     assert obs.shape == (B, n, cfg.obs_size)
 
 
-def test_rl_step_final_obs_and_pid_types_refused():
+def test_rl_step_final_obs_and_pid_types_reset():
     """The final obs of an ended episode; and the PID action types, which
     the port refused until it had the DSL PID controller, now reset with
     a zeroed controller state per drone (their steps are held against

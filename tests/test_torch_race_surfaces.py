@@ -113,9 +113,9 @@ def test_multi_race_aviary_seeds_and_camera():
     assert not np.array_equal(a, env.reset(seed=5)[0])
     lvl3 = MultiRaceAviary("level3", num_drones=2, device="cpu")
     assert not np.array_equal(lvl3.reset()[0], lvl3.reset()[0])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        MultiRaceAviary("getting_started", obs=ObservationType.RGB,
-                        device="cpu")
+    rgb = MultiRaceAviary("getting_started", obs=ObservationType.RGB,
+                          device="cpu")
+    assert rgb.reset()[0].shape == (2, 48, 64, 4)
 
 
 # ---- TorchRaceVectorEnv -----------------------------------------------------

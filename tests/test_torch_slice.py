@@ -112,15 +112,15 @@ def test_slice_reproduces_published_lap():
 def test_package_imports_no_jax():
     """Importing every module of the port, the trainer, the learner and
     the hover env, kernels and calibration included, leaves jax, flax,
-    yaml, gymnasium, msgpack and the JAX package unimported (the card's
-    machine has none of them)."""
+    yaml, gymnasium, msgpack, PIL and the JAX package unimported (the
+    card's machine has none of them)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import gym_pybullet_adrp_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in ('jax', 'flax', 'yaml', 'gymnasium', "
-        "'msgpack', 'gym_pybullet_adrp_tpu') if m in sys.modules]\n"
+        "'msgpack', 'PIL', 'gym_pybullet_adrp_tpu') if m in sys.modules]\n"
         "new = ['gym_pybullet_adrp_tpu_torch.' + m for m in ("
         "'train_race', 'rl.ppo', 'ops.race_rollout', 'envs.fast_hover', "
         "'envs.rl', 'ops.hover_step', 'ops.hover_variants', "
@@ -128,7 +128,9 @@ def test_package_imports_no_jax():
         "'envs.race_vector', 'envs.race', 'utils.utils', 'agents.base', "
         "'agents.hardcoded', 'agents.hardcoded_twogates', 'agents.hover', "
         "'agents.rl_agent', 'agents.rl_fulltrack', 'agents.rl_twogates', "
-        "'sim', 'rl.checkpoint')]\n"
+        "'sim', 'rl.checkpoint', 'ops.render', 'models.urdf', "
+        "'eval_race_rgb', 'utils.rendering', 'envs.race_rl', "
+        "'models.policy', 'convert')]\n"
         "missing = [m for m in new if m not in sys.modules]\n"
         "print('LOADED', bad, 'MISSING', missing)\n"
         "sys.exit(1 if bad or missing else 0)\n"

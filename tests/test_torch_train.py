@@ -18,14 +18,17 @@ from flax.serialization import msgpack_restore as flax_restore
 
 from gym_pybullet_adrp_tpu.models.policy import ActorCritic as FlaxAC
 from gym_pybullet_adrp_tpu.rl import checkpoint as jck
-from gym_pybullet_adrp_tpu_torch import convert, eval_race, sim, train_race
+from gym_pybullet_adrp_tpu_torch import (
+    convert, eval_race, eval_race_rgb, sim, train_race,
+)
 from gym_pybullet_adrp_tpu_torch.control import dslpid
 from gym_pybullet_adrp_tpu_torch.envs import aviary, core, fast_hover
 from gym_pybullet_adrp_tpu_torch.envs import race as prace
 from gym_pybullet_adrp_tpu_torch.envs import race_rl_rowfast as prow
 from gym_pybullet_adrp_tpu_torch.envs import race_vector, vector
 from gym_pybullet_adrp_tpu_torch.envs import rl as rlenv
-from gym_pybullet_adrp_tpu_torch.models import drone
+from gym_pybullet_adrp_tpu_torch.models import drone, urdf
+from gym_pybullet_adrp_tpu_torch.ops import render
 from gym_pybullet_adrp_tpu_torch.rl import checkpoint as pck
 from gym_pybullet_adrp_tpu_torch.rl import ppo
 
@@ -127,11 +130,16 @@ def test_init_reads_shipped_policy():
 @pytest.mark.parametrize("flag", [
     ["--obs", "rgb"], ["--general", "--obs", "rgb"],
 ], ids=["obs_rgb", "general"])
-def test_cli_refuses_what_is_not_ported(flag):
-    """What the trainer still refuses, on the row env and on the general
-    env (``--general``: ported, but not with these)."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_race.main(["--device", "cpu"] + flag)
+def test_cli_refuses_what_is_not_ported(flag, tmp_path):
+    """What the trainer refused until the pixels path was ported, ``--obs
+    rgb`` alone and with ``--general``, now builds the general env and a
+    ``CnnActorCritic`` of the ``--img`` frame and writes it (nothing the
+    CLI offers is refused as not ported any more)."""
+    out = tmp_path / "px.msgpack"
+    train_race.main(["--device", "cpu", "--iters", "0", "--n_envs", "8",
+                     "--img", "16x12", "--out", str(out)] + flag)
+    net = pck.load_policy(out, device="cpu", img=(12, 16))
+    assert net.img == (12, 16, 3)
 
 
 POLICY = str(REPO / "agents/fulltrack_policy.msgpack")
@@ -174,6 +182,8 @@ def test_cli_guards_raise_value_errors(flag, match):
     aviary.HoverAviary.__init__, aviary.MultiHoverAviary.__init__,
     vector.TorchVectorEnv.__init__,
     race_vector.TorchRaceVectorEnv.__init__, prace.MultiRaceAviary.__init__,
+    eval_race_rgb.evaluate, ppo.rgb_hover_adapter, render.empty_scene,
+    urdf.drone_params_from_urdf,
 ], ids=lambda fn: fn.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
