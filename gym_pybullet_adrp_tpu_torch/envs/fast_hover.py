@@ -58,6 +58,8 @@ def make_step(params: DroneParams, B: int, ctrl_freq: int = 30,
     consts = hover_step.hover_consts(params, n_sub, dt)
 
     def step(state: FastHoverState, action):
+        hover_step.refuse_grad("fast_hover.step", hover_step.HOVER_EAGER,
+                               state.packed, action)
         rpm = (hover * (1.0 + 0.05 * action)).contiguous()
         packed = hover_step.ctrl_step_packed(params, state.packed, rpm,
                                              n_sub, dt, consts=consts)

@@ -139,7 +139,11 @@ def batched_race_step_fast(spec: RaceSpec, track: RaceTrack,
     """``race.race_step`` with the window in the kernel: cmd_ids (B, N),
     cmd_args (B, N, ARGS_DIM); returns what ``race.race_step`` returns.
     The commander's setpoint is not refreshed per tick in the state (the
-    kernel evaluates the planner itself), as in the JAX package."""
+    kernel evaluates the planner itself), as in the JAX package. The
+    kernel has no backward: a call that autograd would record raises."""
+    rw.refuse_grad("race_fast.batched_race_step_fast", rw.RACE_EAGER,
+                   cmd_args, state.phys.pos, state.phys.vel,
+                   state.phys.quat, state.phys.omega)
     if not supports(spec):
         raise ValueError("race_fast: PYB physics, CF2X drones and no "
                          "disturbances only; use race.race_step")

@@ -25,6 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -159,6 +161,26 @@ def library(name):
 def error_string(err: int) -> str:
     msg = library("race_window").adrp_error_string(err).decode()
     return f"{err} ({msg})"
+
+
+# the eager paths to differentiate instead of the kernel routes
+HOVER_EAGER = "envs/rl.rl_step (the eager hover env)"
+RACE_EAGER = "envs/race_rl.rl_race_step without fast (the eager race step)"
+
+
+def refuse_grad(route, eager, *tensors):
+    """Raise where autograd would record through a kernel route: the
+    kernels have no backward, so a gradient taken through one would be
+    silently zero. ``eager`` names the path to differentiate instead.
+    Called once where a route is entered, before it picks the kernel or
+    its plain version. The tensors' flags are read before the grad mode:
+    a headline loop enters the K2 route once a launch."""
+    for t in tensors:
+        if t is not None and t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(
+                f"{route}: the hand-written kernel has no backward, so a "
+                f"gradient through it would be zero; differentiate {eager} "
+                f"instead, or call it under torch.no_grad()")
 
 
 def launch_error(name, err):

@@ -45,7 +45,8 @@ import torch
 
 from ._build import (
     call_on as _call, device_index as _index, entry as _entry,
-    launch_error, raw_stream as _stream, sm_count as _sm_count,
+    HOVER_EAGER, launch_error, raw_stream as _stream, refuse_grad,
+    sm_count as _sm_count,
 )
 from .race_window import _check_block
 from ..utils.enums import DroneModel, Physics
@@ -442,7 +443,10 @@ def ctrl_step_packed(params, packed_state, rpm_packed, n_substeps: int,
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
     (csrc/hover_step.cu) on the current stream, counting the launch in
-    ``ctrl_step_packed.launches``. Any other device raises."""
+    ``ctrl_step_packed.launches``. Any other device raises, and so does
+    a call that autograd would record (the kernel has no backward)."""
+    refuse_grad("ctrl_step_packed", "ops/dynamics.ctrl_step", packed_state,
+                rpm_packed)
     dev = packed_state.device
     if dev.type == "cpu":
         return ctrl_step_packed_plain(params, packed_state, rpm_packed,
@@ -529,7 +533,9 @@ def hover_rollout(params, packed_state, seed, n_steps: int,
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
     (csrc/hover_rollout.cu), counting the launch in
-    ``hover_rollout.launches``. Any other device raises."""
+    ``hover_rollout.launches``. Any other device raises, and so does a
+    call that autograd would record (the kernel has no backward)."""
+    refuse_grad("hover_rollout", HOVER_EAGER, packed_state, actions)
     c = consts or hover_consts(params, n_substeps, dt, act_scale, target,
                                max_ep_steps, init_z)
     if packed_state.device.type == "cpu":

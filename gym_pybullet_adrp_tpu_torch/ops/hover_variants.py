@@ -21,6 +21,7 @@ Fixed settings, as in the A/B scripts: 8 substeps at 240 Hz, act_scale
 ``hover_step.hover_consts(params)``, folded once for a loop of launches.
 """
 
+from ._build import HOVER_EAGER, refuse_grad
 from .hover_step import hover_consts, launch_rollout, rollout_plain
 
 
@@ -31,6 +32,7 @@ def _flags(exact_sqrt):
 
 def _variant(fn, params, packed_state, seed, n_steps, exact_sqrt, actions,
              count_resets, consts):
+    refuse_grad(fn.__name__, HOVER_EAGER, packed_state, actions)
     c = consts or hover_consts(params)
     flags = _flags(exact_sqrt)
     if packed_state.device.type == "cpu":

@@ -115,7 +115,10 @@ def race_rollout(kf, km, arm, ground_z, S, A_seq, R, GG, OO, EP, RST_seq,
     steps of K4's tile step; in policy mode 512 threads run each step's
     MLP first, ``race_step.launch_geometry``) on the current stream,
     counting the launch in ``race_rollout.launches``. Any other device
-    raises."""
+    raises, and so does a call that autograd would record (the kernel has
+    no backward)."""
+    _build.refuse_grad("race_rollout", _build.RACE_EAGER, S, A_seq, R,
+                       noise_rows_seq, policy_pack, obs_rows, actn_seq)
     dev = S.device
     kw = dict(n_ticks=n_ticks, dt=dt, spec_tail=spec_tail,
               noise_rows_seq=noise_rows_seq, telemetry=telemetry,

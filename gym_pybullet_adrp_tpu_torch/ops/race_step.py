@@ -47,7 +47,7 @@ from ..utils.constants import (
     OBSTACLE_HALF_LEN, OBSTACLE_RADIUS, RAD_TO_DEG, VISIBILITY_RANGE,
 )
 from . import _build
-from ._build import launch_error
+from ._build import RACE_EAGER, launch_error, refuse_grad
 from .race_window import (
     LANE, NOISE_CHANNELS, S_CHANNELS, WindowConsts, _check_block, recip32,
     window_consts, window_consts_struct, window_loop_plain,
@@ -762,7 +762,11 @@ def race_step_fused(kf, km, arm, ground_z, S, A, R, GG, OO, EP, RST, RSTG,
     the tail; with the policy, 512 threads run the tile's MLP first,
     ``launch_geometry``) on the current stream, counting the launch in
     ``race_step_fused.launches`` and, with the policy option, in
-    ``race_step_fused.policy_launches``. Any other device raises."""
+    ``race_step_fused.policy_launches``. Any other device raises, and so
+    does a call that autograd would record (the kernel has no
+    backward)."""
+    refuse_grad("race_step_fused", RACE_EAGER, S, A, R, noise_rows,
+                policy_pack, obs_rows, actn)
     dev = S.device
     if dev.type == "cpu":
         return race_step_fused_plain(

@@ -55,7 +55,8 @@ from ..control import mellinger as mel
 from ..control.commander import poly7_horner
 from ..control.mellinger import recip32
 from ._build import (
-    call_on, device_index, entry, launch_error, raw_stream, sm_count,
+    RACE_EAGER, call_on, device_index, entry, launch_error, raw_stream,
+    refuse_grad, sm_count,
 )
 
 LANE = 128
@@ -668,7 +669,9 @@ def race_window(kf, km, arm, ground_z, S, W, n_ticks: int = 20,
     CPU tensors take the plain version. CUDA tensors launch the kernel
     (csrc/race_window.cu, ``lane_count`` lanes per agent) on the current
     stream, counting the launch in ``race_window.launches``. Any other
-    device raises."""
+    device raises, and so does a call that autograd would record (the
+    kernel has no backward)."""
+    refuse_grad("race_window", RACE_EAGER, S, W, noise_rows)
     c = consts or window_consts(kf, km, arm, ground_z, dt, n_ticks)
     dev = S.device
     if dev.type == "cpu":

@@ -137,7 +137,8 @@ class ClipAdam:
     gradient ``g / norm * max_norm`` where the norm reaches ``max_norm``
     (optax's formula; ``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the
     norm), Adam moments with bias correction and ``eps`` added to the root
-    (1e-5 here, not torch's 1e-8), the step ``-lr(count) * update``."""
+    (1e-5 by default, not torch's 1e-8), the step ``-lr(count) *
+    update``. With ``max_norm`` None it is ``adam(lr, eps)`` alone."""
 
     def __init__(self, lr, max_norm, eps=1e-5, b1=0.9, b2=0.999):
         self.lr = lr if callable(lr) else (lambda count: lr)
@@ -149,9 +150,10 @@ class ClipAdam:
 
     def update(self, grads, state):
         """(updates, state') for ``grads``; no host synchronisation."""
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        grads = [torch.where(norm < self.max_norm, g,
-                             (g / norm) * self.max_norm) for g in grads]
+        if self.max_norm is not None:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            grads = [torch.where(norm < self.max_norm, g,
+                                 (g / norm) * self.max_norm) for g in grads]
         b1, b2 = self.b1, self.b2
         mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, state.mu)]
         nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)]

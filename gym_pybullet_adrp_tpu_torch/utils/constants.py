@@ -30,6 +30,7 @@ MIN_PWM = 20000.0
 MAX_PWM = 65535.0
 PWM2RPM_SCALE = 0.2685
 PWM2RPM_CONST = 4070.3
+ACTION_DELAY = 0
 SENSOR_DELAY = 0
 SUPPLY_VOLTAGE = 3.0
 

@@ -265,16 +265,17 @@ def jax_reset_draws(spec, keys):
                         for x in jax.vmap(one)(keys)))
 
 
-def mell_stable(mell, n_ticks=20):
+def mell_stable(mell, n_ticks=20, dt=1.0 / 500.0):
     """(B,) bool: envs all of whose drones' tick gating over ``n_ticks``
-    ticks is the same under either rounding (``gating_stable`` on the
-    firmware state of the general env, (B, N) leaves)."""
+    ticks of length ``dt`` is the same under either rounding
+    (``gating_stable`` on the firmware state of the general env, (B, N)
+    leaves)."""
     tick = np.asarray(mell.tick, dtype=np.float32)
     S = np.zeros((58,) + tick.shape, np.float32)
     S[53] = tick
     S[54] = np.asarray(mell.last_pos_pid_call)
     S[55] = np.asarray(mell.last_att_pid_call)
-    return gating_stable(S, n_ticks).all(axis=-1)
+    return gating_stable(S, n_ticks, dt).all(axis=-1)
 
 
 def poly_term_scale(coeffs, t_rel, T_):
@@ -290,6 +291,31 @@ def poly_term_scale(coeffs, t_rel, T_):
     v = (c * i * s ** np.maximum(i - 1, 0)).sum(-1) / safe_T
     a = (c * i * (i - 1) * s ** np.maximum(i - 2, 0)).sum(-1) / safe_T ** 2
     return p, v, a
+
+
+def assert_setpoint(got, ref, t_now, rows):
+    """The commander's state after ``update_setpoint``: the planner's
+    channels at rtol 1e-5 of their terms' magnitudes, the rest equal."""
+    use = (~np.asarray(ref.full_state_override)
+           & np.asarray(ref.planner_active))[rows][..., None]
+    p, v, a = poly_term_scale(np.asarray(ref.coeffs)[rows],
+                              t_now[rows] - np.asarray(ref.t_begin)[rows],
+                              np.asarray(ref.duration)[rows])
+    deg = 180.0 / np.pi
+    for f, scale, ch in (("pos", p[..., :3], slice(0, 3)),
+                         ("vel", v[..., :3], slice(0, 3)),
+                         ("acc", a[..., :3], slice(0, 3)),
+                         ("att_rpy", p[..., 3:] * deg, slice(2, 3)),
+                         ("att_rate", v[..., 3:] * deg, slice(2, 3))):
+        g = getattr(got.setpoint, f).numpy()[rows][..., ch]
+        r = np.asarray(getattr(ref.setpoint, f))[rows][..., ch]
+        tol = ATOL + RTOL * (np.abs(r) + np.where(use, scale, 0))
+        assert (np.abs(g - r) <= tol).all(), f
+    assert_trees(got._replace(setpoint=got.setpoint._replace(
+        pos=None, vel=None, acc=None, att_rpy=None, att_rate=None)),
+        to_port(ref, got)._replace(setpoint=got.setpoint._replace(
+            pos=None, vel=None, acc=None, att_rpy=None, att_rate=None)),
+        "cmdr", rows=rows)
 
 
 def race_S(state):

@@ -770,3 +770,107 @@ def test_cnn_card_matches_cpu(dev, name, h, w):
             torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+# ---------------------------------------------------------------------------
+# the firmware-in-the-loop and Betaflight envs, and autograd, on the card
+
+
+def test_cf_takeoff_on_the_card(dev):
+    """CFAviary's firmware window on the card (eager, no kernel): the
+    takeoff of tests/test_cf_beta.py:14 reaches 0.2-0.5 m in 100 steps."""
+    import numpy as np
+
+    from gym_pybullet_adrp_tpu_torch.envs.cf import CFAviary
+
+    env = CFAviary(device=dev)
+    env.reset()
+    env.sendTakeoffCmd(0.3, 1.5)
+    for i in range(100):
+        obs, *_ = env.step(i)
+    assert 0.2 < obs[0][2] < 0.5 and np.isfinite(obs).all()
+
+
+def test_beta_hover_on_the_card(dev):
+    """BetaAviary with CTBRControl on the card: both drones within 0.05 m
+    of their targets after 100 steps (tests/test_cf_beta.py:357)."""
+    import numpy as np
+
+    from gym_pybullet_adrp_tpu_torch.control import CTBRControl
+    from gym_pybullet_adrp_tpu_torch.envs.beta import BetaAviary
+
+    env = BetaAviary(num_drones=2, device=dev)
+    obs, _ = env.reset()
+    ctrl = CTBRControl(env.DRONE_MODEL, device=dev)
+    target = np.array([[0.0, 0.0, 1.0], [0.3, 0.0, 1.0]])
+    act = np.zeros((2, 4))
+    for i in range(100):
+        obs, *_ = env.step(act, i)
+        for j in range(2):
+            act[j] = ctrl.computeControlFromState(1 / 25, obs[j], target[j])
+    np.testing.assert_allclose(obs[:, :3], target, atol=0.05)
+
+
+def _final_z_grad(device, acts):
+    from gym_pybullet_adrp_tpu_torch.envs import rl as rlenv
+    from gym_pybullet_adrp_tpu_torch.examples import apg
+
+    params = drone_params(device=device)
+    a = acts.to(device).requires_grad_(True)
+    st = rlenv.rl_reset(apg.RL_CFG, apg.INIT_XYZS, apg.INIT_RPYS,
+                        acts.shape[0], device=device)
+    for _ in range(5):
+        st, *_ = rlenv.rl_step(apg.RL_CFG, params, st, a)
+    g, = torch.autograd.grad(st.core.phys.pos[:, 0, 2].sum(), a)
+    return g.cpu()
+
+
+def test_gradient_card_matches_cpu(dev):
+    """d(final z)/d(action) through 5 rl_steps on the card against the
+    CPU at rtol 1e-4 (tests/test_torch_diff.py's tolerance against
+    jax.grad), all positive at the zero action."""
+    gen = torch.Generator().manual_seed(0)
+    acts = torch.cat([torch.zeros(1, 1, 4),
+                      torch.rand((63, 1, 4), generator=gen) * 1.6 - 0.8])
+    got, ref = _final_z_grad(dev, acts), _final_z_grad("cpu", acts)
+    assert (got[0] > 0).all()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=0)
+
+
+def test_kernel_routes_refuse_autograd_on_the_card(dev):
+    """Each kernel route refuses a CUDA input that requires grad before it
+    launches anything; without grad it launches as before."""
+    from gym_pybullet_adrp_tpu_torch.envs import fast_hover
+
+    P = drone_params(device=dev)
+    st = fast_hover.reset_packed([0.0, 0.0, 0.1125], 128, device=dev)
+    rpm = torch.full((4, 1, 128), 14000.0, device=dev)
+    S = torch.zeros(58, 1, 128, device=dev, requires_grad=True)
+    W = torch.zeros(57, 1, 128, device=dev)
+    tail = dict(n_ticks=20, dt=0.002, spec_tail=None)
+    step = fast_hover.make_step(P, 128, device=dev)
+    grad_state = st.packed.clone().requires_grad_(True)
+    calls = [
+        lambda: step(st, torch.zeros(4, 1, 128, device=dev,
+                                     requires_grad=True)),
+        lambda: hs.ctrl_step_packed(P, grad_state, rpm, 8, 1 / 240),
+        lambda: hs.hover_rollout(P, grad_state, 3, 2),
+        lambda: hv.hover_rollout_v2(P, grad_state, 3, 2),
+        lambda: hv.hover_rollout_v3(P, grad_state, 3, 2),
+        lambda: race_window.race_window(3.16e-10, 7.94e-12, 0.0397, 0.0125,
+                                        S, W),
+        lambda: race_step.race_step_fused(0, 0, 0, 0, S, None, None, None,
+                                          None, None, None, None, None,
+                                          **tail),
+        lambda: race_rollout.race_rollout(0, 0, 0, 0, S, None, None, None,
+                                          None, None, None, None, None,
+                                          **tail),
+    ]
+    n = hs.ctrl_step_packed.launches
+    for call in calls:
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+    with torch.no_grad():
+        out = hs.ctrl_step_packed(P, grad_state, rpm, 8, 1 / 240)
+    assert out.shape == (13, 1, 128) and not out.requires_grad
+    assert hs.ctrl_step_packed.launches == n + 1

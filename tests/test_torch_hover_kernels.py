@@ -335,9 +335,11 @@ def _flax_policy(obs_dim, act_dim, seed=1, mean_scale=40.0):
     return params, convert.actor_critic_from_flax(params)
 
 
+@torch.no_grad()
 def _first_done(adapter, net, n_steps):
     """The step at which env 0's first episode ends under the mean action
-    on the port's side, or None."""
+    on the port's side, or None (no autograd: the kernel routes refuse
+    it)."""
     state, obs = adapter.batched_reset()
     for k in range(n_steps):
         mean, _, _ = net(obs.to(torch.float32))

@@ -35,8 +35,9 @@ from gym_pybullet_adrp_tpu.utils.enums import Command as JCommand
 from gym_pybullet_adrp_tpu_torch.envs import race as prace
 
 from _torch_port import (
-    ATOL, CTL_ATOL, GYRO_ATOL, RTOL, assert_race_obs, assert_trees,
-    mell_stable, poly_term_scale, race_specs, tensor, to_port,
+    ATOL, CTL_ATOL, GYRO_ATOL, RTOL, assert_race_obs,
+    assert_setpoint as _assert_setpoint, assert_trees, mell_stable,
+    race_specs, tensor, to_port,
 )
 
 F32 = np.float32
@@ -80,31 +81,6 @@ def _cmds(n_envs, n, step):
         args[:, 1, 0:3] = (0.3 * step, -0.2, 0.2 + 0.1 * step)
         args[:, 1, 9] = 0.2 * step
     return ids, args
-
-
-def _assert_setpoint(got, ref, t_now, rows):
-    """The commander's state after ``update_setpoint``: the planner's
-    channels at rtol 1e-5 of their terms' magnitudes, the rest equal."""
-    use = (~np.asarray(ref.full_state_override)
-           & np.asarray(ref.planner_active))[rows][..., None]
-    p, v, a = poly_term_scale(np.asarray(ref.coeffs)[rows],
-                              t_now[rows] - np.asarray(ref.t_begin)[rows],
-                              np.asarray(ref.duration)[rows])
-    deg = 180.0 / np.pi
-    for f, scale, ch in (("pos", p[..., :3], slice(0, 3)),
-                         ("vel", v[..., :3], slice(0, 3)),
-                         ("acc", a[..., :3], slice(0, 3)),
-                         ("att_rpy", p[..., 3:] * deg, slice(2, 3)),
-                         ("att_rate", v[..., 3:] * deg, slice(2, 3))):
-        g = getattr(got.setpoint, f).numpy()[rows][..., ch]
-        r = np.asarray(getattr(ref.setpoint, f))[rows][..., ch]
-        tol = ATOL + RTOL * (np.abs(r) + np.where(use, scale, 0))
-        assert (np.abs(g - r) <= tol).all(), f
-    assert_trees(got._replace(setpoint=got.setpoint._replace(
-        pos=None, vel=None, acc=None, att_rpy=None, att_rate=None)),
-        to_port(ref, got)._replace(setpoint=got.setpoint._replace(
-            pos=None, vel=None, acc=None, att_rpy=None, att_rate=None)),
-        "cmdr", rows=rows)
 
 
 @pytest.mark.parametrize("noise", [False, True], ids=["calm", "wind"])

@@ -111,16 +111,18 @@ def test_slice_reproduces_published_lap():
 
 def test_package_imports_no_jax():
     """Importing every module of the port, the trainer, the learner and
-    the hover env, kernels and calibration included, leaves jax, flax,
-    yaml, gymnasium, msgpack, PIL and the JAX package unimported (the
-    card's machine has none of them)."""
+    the hover env, kernels and calibration, the CF and Beta envs, the
+    controller API and the examples included, leaves jax, flax, yaml,
+    gymnasium, msgpack, PIL, matplotlib and the JAX package unimported
+    (the card's machine has none of them)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import gym_pybullet_adrp_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in ('jax', 'flax', 'yaml', 'gymnasium', "
-        "'msgpack', 'PIL', 'gym_pybullet_adrp_tpu') if m in sys.modules]\n"
+        "'msgpack', 'PIL', 'matplotlib', 'gym_pybullet_adrp_tpu') "
+        "if m in sys.modules]\n"
         "new = ['gym_pybullet_adrp_tpu_torch.' + m for m in ("
         "'train_race', 'rl.ppo', 'ops.race_rollout', 'envs.fast_hover', "
         "'envs.rl', 'ops.hover_step', 'ops.hover_variants', "
@@ -130,7 +132,11 @@ def test_package_imports_no_jax():
         "'agents.rl_agent', 'agents.rl_fulltrack', 'agents.rl_twogates', "
         "'sim', 'rl.checkpoint', 'ops.render', 'models.urdf', "
         "'eval_race_rgb', 'utils.rendering', 'envs.race_rl', "
-        "'models.policy', 'convert')]\n"
+        "'models.policy', 'convert', 'control.firmware_pid', "
+        "'control.ctbr', 'control.api', 'envs.cf', 'envs.beta', "
+        "'utils.logger', 'examples.cf', 'examples.beta', 'examples.pid', "
+        "'examples.pid_velocity', 'examples.downwash', 'examples.debug', "
+        "'examples.apg', 'examples.race_grad')]\n"
         "missing = [m for m in new if m not in sys.modules]\n"
         "print('LOADED', bad, 'MISSING', missing)\n"
         "sys.exit(1 if bad or missing else 0)\n"
