@@ -34,8 +34,14 @@ over the RGB hover adapter and a URDF round trip. Phases 27-29 launch
 none of the kernels either: CFAviary and CFPIDAviary flights, BetaAviary
 with CTBRControl, the object MellingerControl, examples.pid and
 examples.cf, and gradients through the eager envs (the card's against the
-CPU's, apg and race_grad). Every phase prints its lines; any failed phase
-exits non-zero without the final result line.
+CPU's, apg and race_grad). Phase 30 trains on torch.distributed: the
+script starts two ranks of itself on gloo sharing the card (the sharded
+race rollout through the step and rollout kernels, data-parallel and
+tensor-parallel PPO, the gradient all-reduce's cost) and one on NCCL;
+their kernel launches count with the parent's. Phase 31 runs the training
+tools: profile_ppo, examples.learn and scaling.py's cluster rows. Every
+phase prints its lines; any failed phase exits non-zero without the final
+result line.
 
 Usage (needs one CUDA device and nvcc; no JAX):
   python3 chip_smoke.py [--out DIR]
@@ -53,13 +59,18 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 # device times of launches queued behind a spin kernel (the host's enqueue
 # not timed), and the host's enqueue itself
 from gym_pybullet_adrp_tpu_torch.race_kernel_times import (
     device_host_ms, device_ms,
+)
+# operation counts, bounds and traced device time (one copy, shared with
+# profile_ppo)
+from gym_pybullet_adrp_tpu_torch.utils.profiling import (
+    PEAK_BYTES, PEAK_FLOPS, bound, count_ops, kernel_time, traced,
 )
 
 REPO = Path(__file__).resolve().parent
@@ -80,9 +91,6 @@ POLICY_TOL = 1e-5            # abs, ACT/LOGP/VAL
 # the card's PPO epoch against the CPU's, per tensor: max |diff| over
 # max(1, max |param|); stated before the first run
 PPO_TOL = 1e-5
-# H100 SXM data sheet: float32 outside the tensor cores, and HBM3
-PEAK_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 # the device times PERF.md section 6 records for the earlier design of
 # the race step, one thread per env running its drones' windows in turn
 # (the tile MLP's final tree, H100 80GB HBM3, 700.00 W: race_kernel_times
@@ -144,50 +152,6 @@ def compare_s(name, got, ref):
     return errs
 
 
-class OpCount(TorchDispatchMode):
-    """Counts the operations a plain version performs: one per output
-    element of every elementwise aten op (tagged pointwise), one per
-    input element of a reduction."""
-
-    REDUCTIONS = ("aten.amin", "aten.amax", "aten.sum", "aten.mean")
-
-    def __init__(self):
-        super().__init__()
-        self.ops = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if torch.Tag.pointwise in func.tags:
-            outs = out if isinstance(out, (tuple, list)) else (out,)
-            self.ops += sum(o.numel() for o in outs
-                            if isinstance(o, torch.Tensor))
-        elif str(func).startswith(self.REDUCTIONS):
-            self.ops += args[0].numel()
-        return out
-
-
-def count_ops(fn):
-    with OpCount() as c:
-        fn()
-    return c.ops
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors
-               if isinstance(t, torch.Tensor))
-
-
-def bound(inputs, outputs, ops):
-    """The least time the card could take: the larger of the bytes moved
-    (each input read once, each output written once) over HBM's rate and
-    the operations over the float32 peak."""
-    b = nbytes(*inputs) + nbytes(*outputs)
-    t_b, t_o = b / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
-    return {"bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations",
-            "bytes": b, "ops": ops}
-
-
 STEP_OUT = ("S", "R", "GG", "OO", "EP", "OBS", "REW", "DONE", "INFO",
             "ACT", "LOGP", "VAL")
 ROLL_OUT = ("S", "R", "GG", "OO", "EP", "REW", "DONE", "OBS", "INFO", "ACT",
@@ -231,33 +195,6 @@ def cuda_ms(fn, iters, warmup=2):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
-
-
-def traced(fn):
-    """Run ``fn`` under torch.profiler; returns (host wall ms, [(event,
-    count, device us)]) for device-side events only (kernels, copies,
-    memsets): a host op's device total repeats the time of the kernels it
-    launched. One name may appear in several rows."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    return wall, [(ev.key, ev.count, ev.device_time_total)
-                  for ev in prof.key_averages()
-                  if ev.device_type == DeviceType.CUDA
-                  and ev.device_time_total]
-
-
-def kernel_time(events, kernel):
-    """(launches, device ms) of ``kernel`` in ``traced``'s events."""
-    hits = [(c, us) for k, c, us in events if kernel in k]
-    return sum(c for c, _ in hits), sum(us for _, us in hits) / 1e3
 
 
 def kernel_ms(fn, kernel, n=20):
@@ -2552,16 +2489,449 @@ def phase29(dev, gpu, kernels, plain, totals):
             "race_grad_s": t_rg, "race_grad_ms": rg_t}
 
 
+# ---- phases 30-31: distributed training and the training tools ----------
+
+# phase 30's sizes: the race throughput workload (getting_started, 2 drones
+# COMPETE), the data-parallel hover PPO and the tensor-parallel step
+P30_RACE = dict(n_envs=4096, n_steps=64)
+P30_PPO = dict(n_envs=1024, n_steps=32, n_minibatches=4, grad_accum=2)
+P30_TIMEOUT = 300
+# examples.learn's final deterministic evaluations in phase 31: each of
+# the same network replays the same 242 steps (the tests run all 10)
+N_EVAL_LEARN = 1
+
+
+def _hover_setup(dev):
+    from gym_pybullet_adrp_tpu_torch.envs.core import AviaryConfig
+    from gym_pybullet_adrp_tpu_torch.envs.rl import RLConfig
+    from gym_pybullet_adrp_tpu_torch.models.drone import drone_params
+    from gym_pybullet_adrp_tpu_torch.utils.enums import ActionType
+
+    return (RLConfig(aviary=AviaryConfig(ctrl_freq=30),
+                     act_type=ActionType.RPM), drone_params(device=dev),
+            [[0.0, 0.0, 0.1125]], [[0.0, 0.0, 0.0]])
+
+
+def _rank_race(dev, mesh, rank, world, kernels, plain):
+    """Phase 30 (a) in a rank: the sharded race rollout with K4 each step
+    and with K5 every 32 steps, its launches counted around the
+    distributed run only; the same seed alone after it."""
+    from gym_pybullet_adrp_tpu_torch.envs import race as race_mod
+    from gym_pybullet_adrp_tpu_torch.parallel import distributed
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+    from gym_pybullet_adrp_tpu_torch.utils.enums import Physics, RaceMode
+
+    cfg = load_config("getting_started")
+    spec = race_mod.RaceSpec.from_config(cfg, 2, RaceMode.COMPETE,
+                                         Physics.PYB)
+    track = race_mod.track_from_config(cfg, 2)
+    seed = distributed.rank_seeds(0, world)[rank]
+    n, steps = P30_RACE["n_envs"], P30_RACE["n_steps"]
+    out = {}
+    for k in (0, 32):
+        args = (spec, track, n, steps)
+        fn = distributed.race_rollout_throughput_fn(mesh, *args,
+                                                    rollout_k=k, device=dev)
+        fn(seed)                                           # warm-up
+        torch.cuda.synchronize()
+        with plain, LaunchCount(kernels, dict.fromkeys(
+                list(kernels) + ["race_step_fused[policy]"], 0)) as la:
+            t0 = time.perf_counter()
+            total, local = fn(seed)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        _, alone = distributed.race_rollout_throughput_fn(
+            None, *args, rollout_k=k, device=dev)(seed)
+        out[str(k)] = {"total": float(total), "local": float(local),
+                       "alone": float(alone),
+                       "equal": bool(torch.equal(local, alone)),
+                       "launches": dict(la), "seconds": sec,
+                       "plain_calls": dict(plain.calls)}
+    return out
+
+
+def _rank_ppo(dev, mesh, world):
+    """Phase 30 (b) in a rank: make_distributed_ppo, 2 iterations, the
+    gradient all-reduces counted; returns the row and the parameters."""
+    from gym_pybullet_adrp_tpu_torch.parallel import distributed
+    from gym_pybullet_adrp_tpu_torch.rl import ppo
+
+    rl_cfg, P, xyz, rpy = _hover_setup(dev)
+    cfg = ppo.PPOConfig(**P30_PPO)
+    gi, step = distributed.make_distributed_ppo(mesh, cfg, rl_cfg, P, xyz,
+                                                rpy, device=dev)
+    ts = distributed.host_to_global(mesh, gi(0))
+    n_params = sum(p.numel() for p in ts.params.parameters())
+    sizes, orig = [], torch.distributed.all_reduce
+
+    def counting(t, *a, **k):
+        sizes.append(t.numel())
+        return orig(t, *a, **k)
+
+    torch.distributed.all_reduce = counting
+    syncs, ms, losses = [], [], []
+    try:
+        for _ in range(2):
+            sizes.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, m = step(ts)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            syncs.append(sum(s == n_params for s in sizes))
+    finally:
+        torch.distributed.all_reduce = orig
+    row = {"grad_syncs": syncs, "ms_per_iter": ms, "losses": losses,
+           "expected_syncs": cfg.n_epochs * cfg.n_minibatches
+           // cfg.grad_accum, "n_params": n_params}
+    return row, [p.detach().cpu() for p in ts.params.parameters()]
+
+
+def _tensor_errs(got, ref):
+    """Per tensor max |diff| over max(1, max |ref|), the largest."""
+    return max(float((g - r).abs().max()) / max(1.0, float(r.abs().max()))
+               for g, r in zip(got, [r.detach() for r in ref]))
+
+
+def _rank_pjit(dev, world):
+    """Phase 30 (d) in a rank: make_pjit_ppo at dp=1 x tp=world against
+    make_ppo in one process (rank 0), 2 iterations."""
+    from gym_pybullet_adrp_tpu_torch.parallel import distributed
+    from gym_pybullet_adrp_tpu_torch.rl import ppo
+
+    rl_cfg, P, xyz, rpy = _hover_setup(dev)
+    kw = dict(P30_PPO, grad_accum=1)
+    cfg = ppo.PPOConfig(**kw)
+    mesh = distributed.make_mesh_2d(1, world)
+    init, step = distributed.make_pjit_ppo(mesh, cfg, rl_cfg, P, xyz, rpy,
+                                           device=dev)
+    ts = init(3)
+    losses, ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, m = step(ts)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    full = ts.params.full_state_dict()
+    row = {"losses": losses, "ms_per_iter": ms}
+    if torch.distributed.get_rank() == 0:
+        rinit, rstep, _ = ppo.make_ppo(cfg, rl_cfg, P, xyz, rpy, device=dev)
+        rts = rinit(3)
+        ref = []
+        for _ in range(2):
+            rts, rm = rstep(rts)
+            ref.append(float(rm["loss"]))
+        names = [n for n, _ in rts.params.named_parameters()]
+        row.update(ref_losses=ref, max_err=_tensor_errs(
+            [full[n] for n in names], list(rts.params.parameters())))
+    return row
+
+
+def _rank_world1(dev):
+    """Phase 30 (c) in a world of one rank on NCCL: make_distributed_ppo's
+    step against make_ppo's from the rank's seed, bit for bit."""
+    from gym_pybullet_adrp_tpu_torch.parallel import distributed
+    from gym_pybullet_adrp_tpu_torch.rl import ppo
+
+    rl_cfg, P, xyz, rpy = _hover_setup(dev)
+    cfg = ppo.PPOConfig(**P30_PPO)
+    mesh = distributed.make_mesh()
+    gi, step = distributed.make_distributed_ppo(mesh, cfg, rl_cfg, P, xyz,
+                                                rpy, device=dev)
+    ts = distributed.host_to_global(mesh, gi(0))
+    rinit, rstep, _ = ppo.make_ppo(cfg, rl_cfg, P, xyz, rpy, device=dev)
+    rts = rinit(distributed.rank_seeds(0, 1)[0])
+    for _ in range(2):
+        ts, m = step(ts)
+        rts, rm = rstep(rts)
+    got = [p.detach() for p in ts.params.parameters()]
+    ref = [p.detach() for p in rts.params.parameters()]
+    return {"equal": all(torch.equal(a, b) for a, b in zip(got, ref)),
+            "max_abs_diff": max(float((a - b).abs().max())
+                                for a, b in zip(got, ref)),
+            "loss": float(m["loss"]), "ref_loss": float(rm["loss"])}
+
+
+def rank_main(args):
+    """A rank of phase 30 (``--rank``): joins the group, runs its cases
+    on its card and writes ``rank<R>.json`` (and the PPO parameters) to
+    ``--work``."""
+    from gym_pybullet_adrp_tpu_torch import _scaling_worker
+    from gym_pybullet_adrp_tpu_torch.ops import (
+        hover_step, hover_variants, race_rollout, race_step, race_window,
+    )
+    from gym_pybullet_adrp_tpu_torch import op_calibrate
+    from gym_pybullet_adrp_tpu_torch.parallel import distributed, hosts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = Path(args.work)
+    hosts.ensure_initialized(f"127.0.0.1:{args.port}", args.world,
+                             args.rank, backend=args.backend)
+    dev = hosts.rank_device("cuda")
+    mesh = distributed.make_mesh()
+    kernels = {"race_step_fused": race_step.race_step_fused,
+               "race_rollout": race_rollout.race_rollout}
+    plain = PlainCalls(race_step=race_step, race_window=race_window,
+                       race_rollout=race_rollout, hover_step=hover_step,
+                       hover_variants=hover_variants,
+                       op_calibrate=op_calibrate)
+    res = {"backend": torch.distributed.get_backend(), "device": str(dev)}
+    if args.world > 1:
+        res["race"] = _rank_race(dev, mesh, args.rank, args.world, kernels,
+                                 plain)
+        res["ppo"], params = _rank_ppo(dev, mesh, args.world)
+        torch.save(params, work / f"ppo_params_rank{args.rank}.pt")
+        res["pjit"] = _rank_pjit(dev, args.world)
+    else:
+        res["world1"] = _rank_world1(dev)
+    res["allreduce_us"] = 1e6 * _scaling_worker.time_allreduce(
+        mesh.get_group("dp"), dev)
+    (work / f"rank{args.rank}.json").write_text(json.dumps(res))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_ranks(world, backend, work):
+    """Start ``world`` ranks of this script (new processes, never forks of
+    this one), wait for them at most ``P30_TIMEOUT`` s, stop every one
+    and return their results; a dead or hung rank fails the phase."""
+    from gym_pybullet_adrp_tpu_torch.scaling import free_port
+
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--rank", str(r),
+         "--world", str(world), "--port", str(port), "--backend", backend,
+         "--work", str(work)], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=P30_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                logs.append("(timed out)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check(all(p.returncode == 0 for p in procs),
+          f"{world} {backend} ranks failed: " + "\n".join(
+              f"--- rank {r} ---\n{lg[-3000:]}" for r, lg in enumerate(logs)))
+    return [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def phase30(dev, gpu, kernels, plain, totals):
+    """Distributed training on the card: two ranks of this script on gloo
+    with CUDA tensors on the one card (NCCL refuses two ranks on one GPU),
+    then one rank on NCCL. (a) the sharded race rollout at getting_started
+    2-drone COMPETE, 4096 envs a rank x 64 steps, K4 every step and K5
+    every 32 steps: each rank's sum equal to the same seed alone by
+    torch.equal, the reduced sum the sum of the locals; (b)
+    make_distributed_ppo on the hover env, 1024 envs a rank x 32 steps, 4
+    minibatches, grad_accum 2, 2 iterations: the ranks' parameters equal
+    by torch.equal, n_epochs x 4 / 2 gradient all-reduces an iteration;
+    (c) world size 1 on NCCL: make_distributed_ppo's step equal to
+    make_ppo's bit for bit; (d) make_pjit_ppo at dp=1 x tp=2 within
+    PPO_TOL of make_ppo; (e) the 26,757-float all-reduce on both
+    backends. The ranks' K4/K5 launches go into ``totals``."""
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        ranks = run_ranks(2, "gloo", work)
+        params = [torch.load(work / f"ppo_params_rank{r}.pt")
+                  for r in range(2)]
+        (nccl,) = run_ranks(1, "nccl", work)
+    check(all(r["backend"] == "gloo" for r in ranks)
+          and nccl["backend"] == "nccl", "backends")
+    out = {"race": {}, "launches": {"race_step_fused": 0,
+                                    "race_rollout": 0}}
+    n, steps = P30_RACE["n_envs"], P30_RACE["n_steps"]
+    for k, (name, want) in (("0", ("race_step_fused", steps)),
+                            ("32", ("race_rollout", steps // 32))):
+        rows = [r["race"][k] for r in ranks]
+        for r, row in enumerate(rows):
+            check(row["equal"], f"race k={k} rank {r}: local "
+                  f"{row['local']} != alone {row['alone']}")
+            la = row["launches"]
+            check(la[name] == want and sum(la.values()) == want,
+                  f"race k={k} rank {r}: launches {la}")
+            check(not any(row["plain_calls"].values()),
+                  f"race k={k}: plain calls {row['plain_calls']}")
+            out["launches"][name] += la[name]
+            totals[name] += la[name]
+        total = np.float32(rows[0]["total"])
+        check(all(np.float32(row["total"]) == total for row in rows)
+              and total == np.float32(rows[0]["local"])
+              + np.float32(rows[1]["local"]) and np.isfinite(total),
+              f"race k={k}: reduced {[row['total'] for row in rows]} vs "
+              f"locals {[row['local'] for row in rows]}")
+        rates = [n * steps / row["seconds"] for row in rows]
+        out["race"][k] = {"totals": [row["total"] for row in rows],
+                          "rank_env_steps_per_sec": rates,
+                          "env_steps_per_sec": 2 * n * steps / max(
+                              row["seconds"] for row in rows),
+                          "seconds": [row["seconds"] for row in rows]}
+        print(f"[30] (a) race_rollout_throughput_fn(getting_started 2-drone "
+              f"COMPETE, {n} envs a rank x {steps} steps, rollout_k={k}) on "
+              f"2 gloo ranks sharing the card: {want} {name} launches a "
+              f"rank; each rank's sum equal to its seed alone (torch.equal)"
+              f"; reduced {rows[0]['total']:.9g} = the sum of the locals; "
+              f"{rates[0]:.6g} / {rates[1]:.6g} env-steps/s a rank, "
+              f"{out['race'][k]['env_steps_per_sec']:.6g} together",
+              flush=True)
+    ppo_rows = [r["ppo"] for r in ranks]
+    check(all(torch.equal(a, b) for a, b in zip(*params)),
+          "(b) the ranks' parameters differ")
+    for row in ppo_rows:
+        check(row["grad_syncs"] == [row["expected_syncs"]] * 2,
+              f"(b) gradient all-reduces {row['grad_syncs']}, expected "
+              f"{row['expected_syncs']} an iteration")
+        check(all(math.isfinite(x) for x in row["losses"]),
+              f"(b) losses {row['losses']}")
+    out["ppo"] = ppo_rows
+    print(f"[30] (b) make_distributed_ppo(hover RPM, {P30_PPO['n_envs']} envs "
+          f"a rank x {P30_PPO['n_steps']} steps, 4 minibatches, grad_accum 2)"
+          f", 2 iterations on 2 gloo ranks: parameters equal by torch.equal"
+          f"; {ppo_rows[0]['grad_syncs']} gradient all-reduces an iteration "
+          f"({ppo_rows[0]['n_params']} floats); losses "
+          f"{ppo_rows[0]['losses']}; ms an iteration "
+          + " / ".join(f"{x:.4g}" for x in ppo_rows[0]["ms_per_iter"]),
+          flush=True)
+    w1 = nccl["world1"]
+    check(w1["equal"] and w1["loss"] == w1["ref_loss"],
+          f"(c) world-1 NCCL step differs from make_ppo's: {w1}")
+    print(f"[30] (c) world size 1 on NCCL: make_distributed_ppo's 2 steps "
+          f"equal to make_ppo's bit for bit (loss {w1['loss']:.9g})",
+          flush=True)
+    pj = ranks[0]["pjit"]
+    check(pj["max_err"] <= PPO_TOL and all(
+        math.isclose(a, b, rel_tol=1e-4) for a, b in
+        zip(pj["losses"], pj["ref_losses"])),
+          f"(d) make_pjit_ppo vs make_ppo: {pj}")
+    out["pjit"] = [r["pjit"] for r in ranks]
+    print(f"[30] (d) make_pjit_ppo(dp=1 x tp=2, {P30_PPO['n_envs']} envs x "
+          f"{P30_PPO['n_steps']} steps) against make_ppo, 2 iterations: "
+          f"max per-tensor error {pj['max_err']:.3g} (PPO_TOL {PPO_TOL}), "
+          f"losses {pj['losses']} vs {pj['ref_losses']}; ms an iteration "
+          + " / ".join(f"{x:.4g}" for x in pj["ms_per_iter"]), flush=True)
+    out["allreduce_us"] = {"gloo_2_ranks_cuda": [r["allreduce_us"]
+                                                 for r in ranks],
+                           "nccl_world_1": nccl["allreduce_us"]}
+    print(f"[30] (e) all-reduce of 26,757 float32 (64 dependent syncs): "
+          f"gloo, 2 ranks, CUDA tensors "
+          + " / ".join(f"{x:.4g}" for x in
+                       out["allreduce_us"]["gloo_2_ranks_cuda"])
+          + f" us a sync; NCCL, world size 1, "
+          f"{nccl['allreduce_us']:.4g} us; phase 30 "
+          f"{time.perf_counter() - t_start:.1f} s; on {gpu}", flush=True)
+    return out
+
+
+def phase31(dev, gpu, kernels, plain, totals, phase10_ms=None):
+    """The training tools on the card: profile_ppo at getting_started
+    4096 x 64 with --fuse_policy (its phases, K5's launches and device
+    time, beside phase 10's), examples.learn at the CI size (both
+    artifacts written, no kernel launch), and scaling.py's cluster rows at
+    1 and 2 processes with the 2-process all-reduce row."""
+    from gym_pybullet_adrp_tpu_torch import profile_ppo, scaling
+    from gym_pybullet_adrp_tpu_torch.examples import learn
+
+    t_start = time.perf_counter()
+    with plain, LaunchCount(kernels, totals) as la:
+        prof = profile_ppo.main(["--envs", "4096", "--n_steps", "64",
+                                 "--fuse_policy", "--repeats", "1",
+                                 "--rounds", "2"])
+    t_prof = time.perf_counter() - t_start
+    check(not any(plain.calls.values()), f"plain calls {plain.calls}")
+    check(la["race_rollout"] > 0 and prof["launches"][
+        "rollout (env+policy)"]["race_rollout"] == 4,
+          f"profile_ppo launches {dict(la)}, {prof['launches']}")
+    ph = {k: v * 1e3 for k, v in prof["phases"].items()}
+    uc = prof["update_counts"]
+    k5 = (prof["trace"] or {}).get("kernels", {}).get("race_rollout",
+                                                       (0, None))
+    print(f"[31] profile_ppo(getting_started 4096 x 64, --fuse_policy): "
+          + ", ".join(f"{k} {v:.4g} ms" for k, v in ph.items())
+          + f"; K5 {prof['launches']['rollout (env+policy)']['race_rollout']:g}"
+          f" launches a rollout, traced {k5[0]} launches "
+          + (f"{k5[1]:.4g} ms" if k5[1] is not None else "not measured")
+          + f" on the device; idle share "
+          + (f"{prof['trace']['idle_share']:.3f}" if prof["trace"]
+             else "not measured")
+          + f"; update counted {uc['ops']:.4g} operations, "
+          f"{uc['bytes']:.4g} bytes op by op (the eager update's traffic, "
+          f"{uc['traffic_ms']:.4g} ms at HBM's rate), bound "
+          f"{uc['bound_ms']:.4g} ms ({uc['bound_by']}: "
+          f"{uc['floor_bytes']:.4g} bytes it must move); phase 10 (ms an "
+          f"iteration): "
+          + (", ".join(f"{k} {v:.4g}" for k, v in phase10_ms.items())
+             if phase10_ms else "not run"), flush=True)
+    with tempfile.TemporaryDirectory() as tmp, plain, \
+            LaunchCount(kernels, totals) as la:
+        t0 = time.perf_counter()
+        best = learn.run(output_folder=tmp, plot=False, local=False,
+                         n_envs=16, n_eval=N_EVAL_LEARN)
+        t_learn = time.perf_counter() - t0
+        (save,) = Path(tmp).glob("save-*")
+        saved = sorted(p.name for p in save.glob("*.msgpack"))
+    no_launches(la, plain, "examples.learn")
+    check(saved == ["best_model.msgpack", "final_model.msgpack"]
+          and math.isfinite(best), f"learn: {saved}, best {best}")
+    print(f"[31] examples.learn.run(local=False, n_envs=16, n_eval="
+          f"{N_EVAL_LEARN}) on the card: {saved} written, best eval return "
+          f"{best:.6g}, {t_learn:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    backend = scaling.cluster_backend("cuda", (1, 2))
+    rows = [scaling.run_cluster(n, 4 // n, 64, 16, 5, backend=backend,
+                                timeout=P30_TIMEOUT) for n in (1, 2)]
+    ar = scaling.run_cluster(2, 2, 64, 16, 5, mode="allreduce",
+                             backend=backend, timeout=P30_TIMEOUT)
+    t_scaling = time.perf_counter() - t0
+    for r in rows:
+        check(math.isfinite(r["sec_per_iter"]), f"scaling row {r}")
+    check(all(r["backend"] == backend for r in rows + [ar]),
+          f"scaling rows' backends {[r['backend'] for r in rows + [ar]]}, "
+          f"expected {backend}")
+    print(f"[31] scaling.py (hover PPO, global batch "
+          f"{rows[0]['global_batch']}, {backend} ranks sharing the card: the "
+          f"process boundary, not multi-GPU scaling): "
+          + ", ".join(f"{r['nproc']} proc {r['sec_per_iter'] * 1e3:.4g} ms"
+                      for r in rows)
+          + f" an iteration, efficiency "
+          f"{rows[0]['sec_per_iter'] / rows[1]['sec_per_iter']:.3f}; "
+          f"all-reduce 2 proc {ar['sec_per_sync'] * 1e6:.4g} us a sync; "
+          f"phase 31 {time.perf_counter() - t_start:.1f} s (profile_ppo "
+          f"{t_prof:.1f}, learn {t_learn:.1f}, scaling {t_scaling:.1f}); "
+          f"on {gpu}", flush=True)
+    return {"profile_ppo": {"phases_ms": ph, "launches": prof["launches"],
+                            "trace": prof["trace"],
+                            "update_counts": prof["update_counts"]},
+            "learn": {"best": best, "seconds": t_learn},
+            "scaling": {"ppo": rows, "allreduce": ar}}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
                     help="directory for the build report and metrics")
+    # a rank of phase 30, started by the script itself
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--port", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--backend", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--work", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if args.rank is not None:
+        return rank_main(args)
     from gym_pybullet_adrp_tpu_torch.ops import (
         _build, hover_step, hover_variants, race_rollout, race_step,
         race_window,
@@ -2892,6 +3262,11 @@ def main():
                                 cf_steps=200),
             "grad": phase29(dev, gpu, kernels, plain, main_launches)}
 
+    # ---- 30-31. distributed training, the training tools --------------------
+    dist_out = phase30(dev, gpu, kernels, plain, main_launches)
+    tools = phase31(dev, gpu, kernels, plain, main_launches,
+                    train_out["phase_ms"])
+
     src = "gym_pybullet_adrp_tpu_torch/csrc/"
     kernels = [
         {"name": "race_window", "route": "cuda",
@@ -2945,8 +3320,8 @@ def main():
             "ppo_card_vs_cpu": ppo_err, "training": train_out,
             "rollout_times": times11, "hover_ppo": hover_ppo,
             "general": general, "surfaces": surfaces, "pixels": px,
-            "firmware_and_grad": fitl,
-            "launches": main_launches,
+            "firmware_and_grad": fitl, "distributed": dist_out,
+            "tools": tools, "launches": main_launches,
         }, indent=1, default=str))
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,8 @@
   ``ActorCritic``. A flax Dense ``kernel`` is (in, out); a torch
   ``Linear.weight`` is (out, in), so ``weight = kernel.T``.
 * ``flax_from_actor_critic``: its inverse, the params tree of the flax
-  module with the weights of a port ``ActorCritic`` (numpy float32).
+  module with the weights of a port ``ActorCritic`` (numpy float32);
+  ``actor_critic_flax_names`` maps each port parameter to its flax leaf.
 * ``cnn_actor_critic_from_flax`` / ``flax_from_cnn_actor_critic``: the
   same for ``CnnActorCritic``. A flax Conv ``kernel`` is (kh, kw, cin,
   cout), a ``Conv2d.weight`` (cout, cin, kh, kw): ``weight =
@@ -95,6 +96,19 @@ def flax_from_actor_critic(net: ActorCritic):
          for i, layer in enumerate(layers)}
     p["log_std"] = np32(net.log_std)
     return {"params": p}
+
+
+def actor_critic_flax_names(net: ActorCritic):
+    """{parameter name of the port's ``ActorCritic``: (flax module, leaf)}
+    of the flax tree: ``Dense_i`` in layer order (pi tower, its head, vf
+    tower, its head); a weight is its ``kernel`` transposed."""
+    layers = ([f"pi.{i}" for i in range(len(net.hidden))] + ["pi_out"]
+              + [f"vf.{i}" for i in range(len(net.hidden))] + ["vf_out"])
+    names = {"log_std": ("log_std", None)}
+    for i, layer in enumerate(layers):
+        names[f"{layer}.weight"] = (f"Dense_{i}", "kernel")
+        names[f"{layer}.bias"] = (f"Dense_{i}", "bias")
+    return names
 
 
 def _np32(t):

@@ -24,6 +24,12 @@ The learner runs in float32. On the card that needs
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default)
 and, for the pixel policy's convolutions, ``torch.backends.cudnn.
 allow_tf32 = False`` (on by default), which ``train_race.train`` sets.
+
+Data parallelism (parallel/distributed.py): with a ``torch.distributed``
+process ``group``, ``grouped_update`` averages the accumulated gradient
+over the group before the optimizer (the JAX ``pmean`` over the mesh
+axis, before the clip), in one all-reduce of one flat buffer per update
+group, and ``train_step`` averages its metrics over the group.
 """
 
 import copy
@@ -100,6 +106,9 @@ class Transition(NamedTuple):
     done: torch.Tensor
 
 
+METRICS = ("loss", "mean_episode_return", "mean_reward", "steps")
+
+
 class AdamState(NamedTuple):
     count: int
     mu: list
@@ -148,10 +157,15 @@ class ClipAdam:
         return AdamState(0, [torch.zeros_like(p) for p in params],
                          [torch.zeros_like(p) for p in params])
 
+    def global_norm(self, grads):
+        """The l2 norm over every gradient (the tensor-parallel optimizer
+        adds its shards' across ranks)."""
+        return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+
     def update(self, grads, state):
         """(updates, state') for ``grads``; no host synchronisation."""
         if self.max_norm is not None:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            norm = self.global_norm(grads)
             grads = [torch.where(norm < self.max_norm, g,
                                  (g / norm) * self.max_norm) for g in grads]
         b1, b2 = self.b1, self.b2
@@ -182,11 +196,26 @@ def ppo_loss(net, clip_eps, vf_coef, ent_coef, batch, advantages, returns):
     return total, (pg_loss, v_loss, ent)
 
 
-def grouped_update(loss_fn, tx, g, net, opt_state, xs):
+def group_mean(tensors, group):
+    """The mean over the ranks of ``group`` of each of ``tensors`` (one
+    dtype), by one SUM all-reduce of their concatenation divided by the
+    group's size (gloo has no AVG; JAX's ``pmean`` is ``psum / n``)."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat = flat / dist.get_world_size(group)
+    return [x.view_as(t) for x, t in
+            zip(torch.split(flat, [t.numel() for t in tensors]), tensors)]
+
+
+def grouped_update(loss_fn, tx, g, net, opt_state, xs, group=None):
     """``g`` gradient-accumulation micro-steps and ONE optimizer update:
     ``xs`` holds g (batch, advantages, returns) micro-batches; the applied
-    gradient is the mean of their gradients. Updates ``net`` in place;
-    returns (opt_state', [loss per micro-batch])."""
+    gradient is the mean of their gradients, and, with a process
+    ``group``, that mean averaged over the group's ranks (one all-reduce).
+    Updates ``net`` in place; returns (opt_state', [loss per
+    micro-batch])."""
     params = list(net.parameters())
     acc = [torch.zeros_like(p) for p in params]
     losses = []
@@ -195,7 +224,10 @@ def grouped_update(loss_fn, tx, g, net, opt_state, xs):
         grads = torch.autograd.grad(loss, params)
         acc = [a + gr for a, gr in zip(acc, grads)]
         losses.append(loss.detach())
-    updates, opt_state = tx.update([a / g for a in acc], opt_state)
+    grads = [a / g for a in acc]
+    if group is not None:
+        grads = group_mean(grads, group)
+    updates, opt_state = tx.update(grads, opt_state)
     with torch.no_grad():
         for p, u in zip(params, updates):
             p.add_(u)
@@ -219,12 +251,13 @@ def compute_gae(cfg: PPOConfig, traj: Transition, last_value):
 
 
 def minibatch_epoch(cfg: PPOConfig, tx, net, opt_state, traj, advantages,
-                    returns, take):
+                    returns, take, group=None):
     """One epoch: ``cfg.n_minibatches`` minibatches cut from the batch
     permuted by blocks of ``cfg.shuffle_block`` samples in the order of
     ``take`` (a permutation of the blocks), ``cfg.grad_accum`` of them per
-    optimizer update. Updates ``net`` in place; returns (opt_state',
-    [loss per minibatch])."""
+    optimizer update (averaged over the ranks of a process ``group``).
+    Updates ``net`` in place; returns (opt_state', [loss per
+    minibatch])."""
     batch_size, n_mb = cfg.batch_size, cfg.n_minibatches
     mb, blk, g = batch_size // n_mb, cfg.shuffle_block, cfg.grad_accum
     if batch_size % blk or mb % blk:
@@ -249,13 +282,43 @@ def minibatch_epoch(cfg: PPOConfig, tx, net, opt_state, traj, advantages,
     for i0 in range(0, n_mb, g):
         xs = [(Transition(obs[i], act[i], logp[i], None, None, None),
                adv[i], ret[i]) for i in range(i0, i0 + g)]
-        opt_state, ls = grouped_update(loss_fn, tx, g, net, opt_state, xs)
+        opt_state, ls = grouped_update(loss_fn, tx, g, net, opt_state, xs,
+                                       group)
         losses += ls
     return opt_state, losses
 
 
+@torch.no_grad()
+def policy_rollout(n_steps, env_step, ts: TrainState, sample):
+    """``n_steps`` steps of the policy ``ts.params`` on the env of
+    ``env_step`` (an ``EnvAdapter.step``), each action drawn by
+    ``sample(mean, log_std) -> (action, logp)`` and clipped to [-1, 1]
+    for the env. Returns (ts', trajectory, {"finished_return",
+    "finished_len"}), the episodes ended in each step."""
+    trs, fin_ret, fin_len = [], [], []
+    for _ in range(n_steps):
+        mean, log_std, value = ts.params(ts.last_obs)
+        action, logp = sample(mean, log_std)
+        env_state, obs, reward, done = env_step(
+            ts.env_state, torch.clamp(action, -1.0, 1.0))
+        ep_return = ts.ep_return + reward
+        ep_len = ts.ep_len + 1
+        trs.append(Transition(ts.last_obs, action, logp, value,
+                              reward.to(torch.float32), done))
+        fin_ret.append(torch.where(done, ep_return, float("nan")))
+        fin_len.append(torch.where(done, ep_len, -1))
+        ts = ts._replace(
+            env_state=env_state, last_obs=obs.to(torch.float32),
+            ep_return=torch.where(done, 0.0, ep_return),
+            ep_len=torch.where(done, 0, ep_len))
+    traj = Transition(*[torch.stack(x) for x in zip(*trs)])
+    return ts, traj, {"finished_return": torch.stack(fin_ret),
+                      "finished_len": torch.stack(fin_len)}
+
+
 def make_ppo_core(cfg: PPOConfig, adapter: EnvAdapter, hidden=(64, 64),
-                  rollout_override=None, device="cuda", network=None):
+                  rollout_override=None, device="cuda", network=None,
+                  group=None):
     """Build ``(init_fn, train_step, eval_rollout)`` for any EnvAdapter.
 
     ``init_fn(seed) -> TrainState``: the policy is an ``ActorCritic`` of
@@ -275,6 +338,11 @@ def make_ppo_core(cfg: PPOConfig, adapter: EnvAdapter, hidden=(64, 64),
     rollout (policy forward, sample, ``adapter.step`` per step), as the
     policy-in-kernel race rollout does
     (envs/race_rl_rowfast.make_policy_rollout).
+
+    ``group``, a ``torch.distributed`` process group, makes each rank's
+    step one shard of a data-parallel step: the gradients are averaged
+    over it before every optimizer update, and the metrics (as float32
+    tensors) after the iteration.
     """
     device = torch.device(device)
     lr = (linear_schedule(cfg.lr, 0.0, cfg.total_updates)
@@ -302,27 +370,10 @@ def make_ppo_core(cfg: PPOConfig, adapter: EnvAdapter, hidden=(64, 64),
             env_rng=adapter.generator,
         )
 
-    @torch.no_grad()
     def rollout(ts):
-        trs, fin_ret, fin_len = [], [], []
-        for _ in range(cfg.n_steps):
-            mean, log_std, value = ts.params(ts.last_obs)
-            action, logp = sample_action(mean, log_std, ts.rng)
-            env_state, obs, reward, done = adapter.step(
-                ts.env_state, torch.clamp(action, -1.0, 1.0))
-            ep_return = ts.ep_return + reward
-            ep_len = ts.ep_len + 1
-            trs.append(Transition(ts.last_obs, action, logp, value,
-                                  reward.to(torch.float32), done))
-            fin_ret.append(torch.where(done, ep_return, float("nan")))
-            fin_len.append(torch.where(done, ep_len, -1))
-            ts = ts._replace(
-                env_state=env_state, last_obs=obs.to(torch.float32),
-                ep_return=torch.where(done, 0.0, ep_return),
-                ep_len=torch.where(done, 0, ep_len))
-        traj = Transition(*[torch.stack(x) for x in zip(*trs)])
-        return ts, traj, {"finished_return": torch.stack(fin_ret),
-                          "finished_len": torch.stack(fin_len)}
+        return policy_rollout(cfg.n_steps, adapter.step, ts,
+                              lambda mean, log_std: sample_action(
+                                  mean, log_std, ts.rng))
 
     def update_epoch(ts, opt_state, traj, advantages, returns):
         # permute the whole batch once (by blocks), then take contiguous
@@ -330,7 +381,7 @@ def make_ppo_core(cfg: PPOConfig, adapter: EnvAdapter, hidden=(64, 64),
         n_blocks = cfg.batch_size // cfg.shuffle_block
         take = torch.randperm(n_blocks, generator=ts.rng, device=device)
         return minibatch_epoch(cfg, tx, ts.params, opt_state, traj,
-                               advantages, returns, take)
+                               advantages, returns, take, group)
 
     def mark(times, name, t0):
         if times is None:
@@ -368,6 +419,14 @@ def make_ppo_core(cfg: PPOConfig, adapter: EnvAdapter, hidden=(64, 64),
             "mean_reward": traj.reward.mean(),
             "steps": cfg.batch_size,
         }
+        if group is not None:
+            # the JAX package's pmean of each metric as float32
+            # (parallel/distributed.py:156-158)
+            vals = group_mean([torch.stack([
+                metrics[k].to(torch.float32) for k in METRICS[:3]]
+                + [torch.tensor(float(cfg.batch_size), device=device)])],
+                group)[0]
+            metrics = dict(zip(METRICS, vals.unbind()))
         return ts, metrics
 
     @torch.no_grad()
@@ -447,15 +506,17 @@ def rgb_hover_adapter(cfg: PPOConfig, rl_cfg: rlenv.RLConfig,
 
 
 def make_ppo(cfg: PPOConfig, rl_cfg: rlenv.RLConfig, params: DroneParams,
-             init_xyzs, init_rpys, hidden=(64, 64), device="cuda"):
+             init_xyzs, init_rpys, hidden=(64, 64), device="cuda",
+             group=None, rollout_override=None):
     """Hover-task PPO (the learner of examples/learn.py): ``(init_fn,
-    train_step, eval_rollout)`` as ``make_ppo_core``'s, with
-    ``eval_rollout`` returning the first env's return only."""
+    train_step, eval_rollout)`` as ``make_ppo_core``'s (``group`` and
+    ``rollout_override`` as there), with ``eval_rollout`` returning the
+    first env's return only."""
     adapter = hover_adapter(cfg, rl_cfg, params, init_xyzs, init_rpys,
                             device=device)
-    init_fn, train_step, eval_core = make_ppo_core(cfg, adapter,
-                                                   hidden=hidden,
-                                                   device=device)
+    init_fn, train_step, eval_core = make_ppo_core(
+        cfg, adapter, hidden=hidden, device=device, group=group,
+        rollout_override=rollout_override)
 
     def eval_rollout(net, n_steps: int):
         return eval_core(net, n_steps)[:1]

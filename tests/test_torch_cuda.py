@@ -874,3 +874,82 @@ def test_kernel_routes_refuse_autograd_on_the_card(dev):
         out = hs.ctrl_step_packed(P, grad_state, rpm, 8, 1 / 240)
     assert out.shape == (13, 1, 128) and not out.requires_grad
     assert hs.ctrl_step_packed.launches == n + 1
+
+
+# ---- distributed training (phase 30 of chip_smoke.py, small) -------------
+
+
+def _world_of_one(backend):
+    from gym_pybullet_adrp_tpu_torch.parallel import hosts
+    from gym_pybullet_adrp_tpu_torch.scaling import free_port
+
+    assert hosts.ensure_initialized(f"127.0.0.1:{free_port()}", 1, 0,
+                                    backend=backend)
+
+
+@pytest.mark.parametrize("k", [0, 4], ids=["race_step", "race_rollout"])
+def test_sharded_race_rollout_on_the_card(dev, k):
+    """race_rollout_throughput_fn under a process group (gloo, CUDA
+    tensors): K4 every step or K5 every k steps, the local sum equal to
+    the same seed alone, and the reduced sum the local one."""
+    from gym_pybullet_adrp_tpu_torch.envs import race as race_mod
+    from gym_pybullet_adrp_tpu_torch.parallel import distributed
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+    from gym_pybullet_adrp_tpu_torch.utils.enums import Physics, RaceMode
+
+    cfg = load_config("getting_started")
+    spec = race_mod.RaceSpec.from_config(cfg, 2, RaceMode.COMPETE,
+                                         Physics.PYB)
+    track = race_mod.track_from_config(cfg, 2)
+    _world_of_one("gloo")
+    try:
+        mesh = distributed.make_mesh()
+        fn = distributed.race_rollout_throughput_fn(
+            mesh, spec, track, 256, 8, rollout_k=k, device=dev)
+        race_step.race_step_fused.launches = 0
+        race_rollout.race_rollout.launches = 0
+        total, local = fn(5)
+        launched = (race_step.race_step_fused.launches,
+                    race_rollout.race_rollout.launches)
+        _, alone = distributed.race_rollout_throughput_fn(
+            None, spec, track, 256, 8, rollout_k=k, device=dev)(5)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert launched == ((8, 0) if k == 0 else (0, 8 // k))
+    assert torch.equal(local, alone) and torch.equal(total, local)
+    assert total.is_cuda and torch.isfinite(total)
+
+
+def test_world_of_one_nccl_step_equals_make_ppo(dev):
+    """make_distributed_ppo on one NCCL rank: make_ppo's step bit for
+    bit (2 iterations, grad_accum 2)."""
+    from gym_pybullet_adrp_tpu_torch.envs.core import AviaryConfig
+    from gym_pybullet_adrp_tpu_torch.envs.rl import RLConfig
+    from gym_pybullet_adrp_tpu_torch.models.drone import drone_params
+    from gym_pybullet_adrp_tpu_torch.parallel import distributed
+    from gym_pybullet_adrp_tpu_torch.rl import ppo
+    from gym_pybullet_adrp_tpu_torch.utils.enums import ActionType
+
+    rl_cfg = RLConfig(aviary=AviaryConfig(ctrl_freq=30),
+                      act_type=ActionType.RPM)
+    P = drone_params(device=dev)
+    xyz, rpy = [[0.0, 0.0, 0.1125]], [[0.0, 0.0, 0.0]]
+    cfg = ppo.PPOConfig(n_envs=64, n_steps=16, n_minibatches=4,
+                        grad_accum=2, n_epochs=2)
+    _world_of_one("nccl")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = distributed.make_mesh()
+        gi, step = distributed.make_distributed_ppo(mesh, cfg, rl_cfg, P,
+                                                    xyz, rpy, device=dev)
+        ts = distributed.host_to_global(mesh, gi(0))
+        rinit, rstep, _ = ppo.make_ppo(cfg, rl_cfg, P, xyz, rpy, device=dev)
+        rts = rinit(distributed.rank_seeds(0, 1)[0])
+        for _ in range(2):
+            ts, m = step(ts)
+            rts, rm = rstep(rts)
+    finally:
+        torch.distributed.destroy_process_group()
+    for a, b in zip(ts.params.parameters(), rts.params.parameters()):
+        assert torch.equal(a, b)
+    assert float(m["loss"]) == float(rm["loss"])

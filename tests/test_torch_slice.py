@@ -112,7 +112,8 @@ def test_slice_reproduces_published_lap():
 def test_package_imports_no_jax():
     """Importing every module of the port, the trainer, the learner and
     the hover env, kernels and calibration, the CF and Beta envs, the
-    controller API and the examples included, leaves jax, flax, yaml,
+    controller API, the examples, distributed training and the training
+    tools included, leaves jax, flax, yaml,
     gymnasium, msgpack, PIL, matplotlib and the JAX package unimported
     (the card's machine has none of them)."""
     code = (
@@ -136,7 +137,9 @@ def test_package_imports_no_jax():
         "'control.ctbr', 'control.api', 'envs.cf', 'envs.beta', "
         "'utils.logger', 'examples.cf', 'examples.beta', 'examples.pid', "
         "'examples.pid_velocity', 'examples.downwash', 'examples.debug', "
-        "'examples.apg', 'examples.race_grad')]\n"
+        "'examples.apg', 'examples.race_grad', 'parallel.hosts', "
+        "'parallel.distributed', 'scaling', '_scaling_worker', "
+        "'profile_ppo', 'utils.profiling', 'examples.learn')]\n"
         "missing = [m for m in new if m not in sys.modules]\n"
         "print('LOADED', bad, 'MISSING', missing)\n"
         "sys.exit(1 if bad or missing else 0)\n"

@@ -19,7 +19,7 @@ from flax.serialization import msgpack_restore as flax_restore
 from gym_pybullet_adrp_tpu.models.policy import ActorCritic as FlaxAC
 from gym_pybullet_adrp_tpu.rl import checkpoint as jck
 from gym_pybullet_adrp_tpu_torch import (
-    convert, eval_race, eval_race_rgb, sim, train_race,
+    convert, eval_race, eval_race_rgb, profile_ppo, scaling, sim, train_race,
 )
 from gym_pybullet_adrp_tpu_torch.control import dslpid
 from gym_pybullet_adrp_tpu_torch.envs import aviary, core, fast_hover
@@ -27,8 +27,10 @@ from gym_pybullet_adrp_tpu_torch.envs import race as prace
 from gym_pybullet_adrp_tpu_torch.envs import race_rl_rowfast as prow
 from gym_pybullet_adrp_tpu_torch.envs import race_vector, vector
 from gym_pybullet_adrp_tpu_torch.envs import rl as rlenv
+from gym_pybullet_adrp_tpu_torch.examples import learn
 from gym_pybullet_adrp_tpu_torch.models import drone, urdf
 from gym_pybullet_adrp_tpu_torch.ops import render
+from gym_pybullet_adrp_tpu_torch.parallel import distributed, hosts
 from gym_pybullet_adrp_tpu_torch.rl import checkpoint as pck
 from gym_pybullet_adrp_tpu_torch.rl import ppo
 
@@ -183,7 +185,10 @@ def test_cli_guards_raise_value_errors(flag, match):
     vector.TorchVectorEnv.__init__,
     race_vector.TorchRaceVectorEnv.__init__, prace.MultiRaceAviary.__init__,
     eval_race_rgb.evaluate, ppo.rgb_hover_adapter, render.empty_scene,
-    urdf.drone_params_from_urdf,
+    urdf.drone_params_from_urdf, distributed.make_distributed_ppo,
+    distributed.make_pjit_ppo, distributed.rollout_throughput_fn,
+    distributed.race_rollout_throughput_fn, hosts.rank_device,
+    scaling.main, scaling.run_cluster, profile_ppo.main, learn.run,
 ], ids=lambda fn: fn.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
