@@ -39,9 +39,13 @@ script starts two ranks of itself on gloo sharing the card (the sharded
 race rollout through the step and rollout kernels, data-parallel and
 tensor-parallel PPO, the gradient all-reduce's cost) and one on NCCL;
 their kernel launches count with the parent's. Phase 31 runs the training
-tools: profile_ppo, examples.learn and scaling.py's cluster rows. Every
-phase prints its lines; any failed phase exits non-zero without the final
-result line.
+tools: profile_ppo, examples.learn and scaling.py's cluster rows. Phase
+32 runs the last tools, which launch no kernel (the race wrappers,
+hover_ceiling, race_video, flight_report, replay_viewer, live_fly), and
+the roofline accounting: the shares of the card's peaks at the rates of
+phases 6, 11 and 13 and every kernel's operation bound in FP32 issues.
+Every phase prints its lines; any failed phase exits non-zero without the
+final result line.
 
 Usage (needs one CUDA device and nvcc; no JAX):
   python3 chip_smoke.py [--out DIR]
@@ -67,10 +71,11 @@ import torch
 from gym_pybullet_adrp_tpu_torch.race_kernel_times import (
     device_host_ms, device_ms,
 )
-# operation counts, bounds and traced device time (one copy, shared with
-# profile_ppo)
+# operation counts, bounds (in FP32 issues, utils/profiling.py says why)
+# and traced device time (one copy, shared with profile_ppo)
 from gym_pybullet_adrp_tpu_torch.utils.profiling import (
-    PEAK_BYTES, PEAK_FLOPS, bound, count_ops, kernel_time, traced,
+    PEAK_BYTES, PEAK_FP32_OPS, bound, census, kernel_time, ops_ms,
+    traced,
 )
 
 REPO = Path(__file__).resolve().parent
@@ -486,7 +491,8 @@ def phase7(dev, gen, eval_race, race_step, n_envs):
             res["queued_ms"] = device_ms(kern)
             res["eager_policy_ms"] = eager_policy_ms(env, hidden, gen)
             res["plain_ms"] = cuda_ms(plain, 2, warmup=1)
-            res.update(bound(inputs, plain(), count_ops(plain)))
+            c = census(plain)
+            res.update(bound(inputs, plain(), c.ops, c.flops))
             text, res["launch"] = launch_lines(race_step, "race_step", env,
                                                hidden)
             print(f"[7] race_step with the policy, getting_started 1 drone, "
@@ -590,11 +596,11 @@ def phase8(dev, gen, eval_race, race_step, race_rollout, n_envs):
             res["queued_ms"] = device_ms(kern, n=5)
             res["plain_ms"] = cuda_ms(plain_fn, 1, warmup=0)
             # the plain rollout is K identical plain steps: count one
-            step_ops = count_ops(lambda: race_rollout.race_rollout_plain(
+            c = census(lambda: race_rollout.race_rollout_plain(
                 *args3[:5], None, *args3[6:10], d.RST[:1], d.RSTG[:1],
                 d.RSTO[:1], **dict(pol, actn_seq=seq[:1]), **kw_t))
-            res.update(bound(args + (pack, obs, seq), kern(),
-                             K * step_ops))
+            res.update(bound(args + (pack, obs, seq), kern(), K * c.ops,
+                             K * c.flops))
             text, res["launch"] = launch_lines(race_step, "race_rollout",
                                                env, (64, 64))
             print(f"[8] race_rollout[policy, getting_started 1 drone, "
@@ -887,7 +893,8 @@ def phase12(dev, gen, gpu, kernels, plain, totals, n_envs=4096, steps=256):
     res["loop_ms"] = cuda_ms(kern, 50)
     res["ms"], res["enqueue_ms"] = device_host_ms(kern, 50)
     res["plain_ms"] = cuda_ms(plain_fn, 5)
-    res.update(bound((packed, rpm), (got,), count_ops(plain_fn)))
+    oc = census(plain_fn)
+    res.update(bound((packed, rpm), (got,), oc.ops, oc.flops))
     text, res["launch"] = hover_launch_line(hs, "hover_step", n_envs)
     print(f"[12] ctrl_step_packed vs plain, {n_envs} envs (128 in ground "
           f"contact): max abs err per channel {per_ch} (tol {HOVER_TOL}), "
@@ -1079,9 +1086,10 @@ def phase13(dev, gen, gpu, kernels, plain, totals, n_envs=4096,
     res["plain_ms"] = cuda_ms(plain_fn, 1, warmup=0)
     # the function's float work (the physics; the in-kernel draw's integer
     # ops are not counted): ops of 2 plain steps x n_steps / 2
-    step_ops = count_ops(lambda: hs.hover_rollout_plain(
+    two = census(lambda: hs.hover_rollout_plain(
         P, st0, 0, 2, actions=acts[:2], consts=c))
-    res.update(bound((st0,), (st0, st0[0]), step_ops * n_steps // 2))
+    res.update(bound((st0,), (st0, st0[0]), two.ops * n_steps // 2,
+                     two.flops * n_steps // 2))
     print(f"[13] hover_rollout plain (injected, {n_steps} steps) "
           f"{res['plain_ms']:.4g} ms; bound {res['bound_ms']:.4g} ms "
           f"({res['bound_by']}: {res['ops']:.4g} ops, {res['bytes']:.4g} B)",
@@ -1211,9 +1219,10 @@ def phase14(dev, gen, gpu, kernels, plain, totals, n_envs=4096,
         r["max_abs_err"] = max(max_err[name], vs_plain(
             name + ", injected",
             fn(P, st0, 0, n_steps, actions=acts, consts=c), ref))
-        step_ops = count_ops(lambda pfn=pfn: pfn(
+        two = census(lambda pfn=pfn: pfn(
             P, st0, 0, 2, actions=acts[:2], consts=c))
-        r.update(bound((st0,), (st0, st0[0]), step_ops * n_steps // 2))
+        r.update(bound((st0,), (st0, st0[0]), two.ops * n_steps // 2,
+                       two.flops * n_steps // 2))
         text, r["launch"] = hover_launch_line(
             hs, "hover_rollout", n_envs,
             "0,0" if name.endswith("v2") else "1,0")
@@ -1279,8 +1288,11 @@ def phase15(dev, gpu, op_calibrate, kernels, plain, totals):
     torch.cuda.synchronize()
     res["plain_ms"] = start.elapsed_time(stop)
     err = chain_err("fma", kern(), ref)
-    res.update(bound((xr,), (xr,), count_ops(
-        lambda: op_calibrate.op_chain_plain("fma", xr, 1)) * iters))
+    # the chains' start and final sum run once a launch, the 16 x 8
+    # links once an iteration: count both from 1 and 2 iterations
+    one, two = (census(lambda n=n: op_calibrate.op_chain_plain(
+        "fma", xr, n)).ops for n in (1, 2))
+    res.update(bound((xr,), (xr,), (2 * one - two) + (two - one) * iters))
     print(f"[15] op_chain[fma], {rows} x 128, iters {iters}: max abs err vs "
           f"plain {err:.3g} (bit for bit); {res['ms']:.4g} ms on the device, "
           f"plain {res['plain_ms']:.4g} ms, bound {res['bound_ms']:.4g} ms "
@@ -1503,7 +1515,8 @@ def phase17(dev, gen, gpu, eval_race, race_window, kernels, plain, totals,
     traced_ms = kernel_ms(k3, "race_window_kernel")
     out["ms"] = out["queued_ms"] if traced_ms is None else traced_ms
     out["plain_ms"] = cuda_ms(k3_plain, 3, warmup=1)
-    out.update(bound((S, W), (S,), count_ops(k3_plain)))
+    oc = census(k3_plain)
+    out.update(bound((S, W), (S,), oc.ops, oc.flops))
     print(f"[17] race_window at the --fast trainer's shape (twogates "
           f"{n_envs} x 1, FULLSTATE): {out['ms']:.4g} ms on the device "
           f"({'trace' if traced_ms is not None else 'queued'}; queued "
@@ -2032,18 +2045,19 @@ def phase23(dev, gpu, kernels, plain, totals, n_frames=512):
     out = frames()
     check(out.shape == (n_frames, 64 * 48 * 3) and bool(
         torch.isfinite(out).all()), "render: frames")
-    ops = count_ops(frames)
+    oc = census(frames)
     rs = st.race
     b = bound((rs.gates_actual, rs.obstacles_actual, rs.phys.pos,
-               rs.phys.vel, rs.phys.quat), (out,), ops)
+               rs.phys.vel, rs.phys.quat), (out,), oc.ops, oc.flops)
     print(f"[23] compute_rgb_obs, {n_frames} velocity-camera frames at "
           f"64x48, 110 deg (getting_started, "
           f"{scene.seg_a.shape[0]} segments, {scene.cap_center.shape[0]} "
           f"capsules, 1 sphere masked): {ms:.4g} ms a render (CUDA events, "
           f"10 back to back; host enqueue {host_ms:.4g} ms), peak "
           f"{peak / 2**20:.1f} MiB over the state; bound {b['bound_ms']:.4g} "
-          f"ms ({b['bound_by']}: {b['ops']:.4g} operations / 67 TFLOP/s = "
-          f"{b['ops'] / PEAK_FLOPS * 1e3:.4g} ms, {b['bytes']} B / 3.35 "
+          f"ms ({b['bound_by']}: {b['ops']:.4g} operations / "
+          f"{PEAK_FP32_OPS:.4g} FP32 issues/s = {ops_ms(b['ops']):.4g} ms, "
+          f"{b['bytes']} B / 3.35 "
           f"TB/s = {b['bytes'] / PEAK_BYTES * 1e3:.4g} ms); on {gpu}",
           flush=True)
     return {"seg_diff": len(bad), "depth_rel": rel, "rgba_err": rgba_err,
@@ -2406,15 +2420,20 @@ def grad_step_times(fwd, horizon):
     return (t1 - t0) / horizon * 1e3, (t2 - t1) / horizon * 1e3, peak
 
 
+# race_grad's iterations in phase 29: 4 of the example's 8 (its loss falls
+# from the first; the 8-iteration run took 77-120 s of the smoke's budget)
+RACE_GRAD_ITERS = 4
+
+
 def phase29(dev, gpu, kernels, plain, totals):
     """Differentiable simulation on the card: d(final z)/d(action) through
     5 rl_steps for 64 envs against the CPU at GRAD_RTOL, all positive at
     the zero action; apg.run(iters=25, horizon=20, n_envs=256), its 25
     losses against the CPU's at GRAD_RTOL and its best loss below
-    APG_256_BAR x its first; race_grad.run(
-    iters=8, horizon=10) with its last loss below its first (:54); ms a
-    forward and a backward step and the peak memory of one BPTT iteration
-    of each."""
+    APG_256_BAR x its first; race_grad.run(iters=RACE_GRAD_ITERS,
+    horizon=10) with its last loss below its first (:54); ms a forward
+    and a backward step and the peak memory of one BPTT iteration of
+    each."""
     from gym_pybullet_adrp_tpu_torch.examples import apg, race_grad
     from gym_pybullet_adrp_tpu_torch.models.drone import drone_params
     from gym_pybullet_adrp_tpu_torch.models.policy import ActorCritic
@@ -2451,8 +2470,8 @@ def phase29(dev, gpu, kernels, plain, totals):
                                          list(net.parameters())), 20)
 
         t0 = time.perf_counter()
-        rg_losses, gates, closest = race_grad.run(iters=8, horizon=10,
-                                                  verbose=False, device=dev)
+        rg_losses, gates, closest = race_grad.run(
+            iters=RACE_GRAD_ITERS, horizon=10, verbose=False, device=dev)
         t_rg = time.perf_counter() - t0
         check(all(map(math.isfinite, rg_losses))
               and rg_losses[-1] < rg_losses[0],
@@ -2477,7 +2496,8 @@ def phase29(dev, gpu, kernels, plain, totals):
           f"m, {t_apg:.1f} s; one iteration {apg_t[0]:.4g} ms a forward "
           f"step, {apg_t[1]:.4g} "
           f"ms a backward step (checkpointed), peak {apg_t[2]:.1f} MiB; "
-          f"race_grad.run(8 iters, horizon 10): loss {rg_losses[0]:.5g} -> "
+          f"race_grad.run({RACE_GRAD_ITERS} iters, horizon 10): loss "
+          f"{rg_losses[0]:.5g} -> "
           f"{rg_losses[-1]:.5g}, gates {gates}, closest {closest:.3f} m, "
           f"{t_rg:.1f} s; one iteration {rg_t[0]:.4g} ms a forward step, "
           f"{rg_t[1]:.4g} ms a backward step, peak {rg_t[2]:.1f} MiB; "
@@ -2914,6 +2934,311 @@ def phase31(dev, gpu, kernels, plain, totals, phase10_ms=None):
             "scaling": {"ppo": rows, "allreduce": ar}}
 
 
+# ---- phase 32: the last tools on the card --------------------------------
+
+# the twogates flights of (a) and (d) use rl_twogates, which reaches gate 2
+# in ~25-31 steps (hardcoded_twogates clears gate 1 only, on both
+# packages); the report's episode is cut to P32_REPORT_SEC of sim time,
+# gate 2 inside it; a cap on the wrapped flight's steps
+P32_AGENT = "rl_twogates"
+P32_REPORT_SEC = 2.4
+P32_MAX_STEPS = 250
+P32_VIDEO = dict(frames=20, width=320, height=240)
+P32_PROBE_GRID = 32
+# the reference's rig steps CtrlAviary at 240 Hz in real time; the live
+# page polls /state LIVE_POLL_S after each answer, here for LIVE_SECONDS
+LIVE_RIG_MS = 1e3 / 240
+LIVE_POLL_S = 0.05
+LIVE_SECONDS = 3.0
+
+
+def _p32_wrappers(dev):
+    """(a) RewardWrapper(DroneObservationWrapper(MultiRaceAviary)) flown
+    to its end: terminated no later than the step that counts gate 2,
+    every reward finite, their sum above one gate's bonus."""
+    from gym_pybullet_adrp_tpu_torch.envs.race import MultiRaceAviary
+    from gym_pybullet_adrp_tpu_torch.utils.utils import load_controller
+    from gym_pybullet_adrp_tpu_torch.utils.wrapper import (
+        DroneObservationWrapper, RewardWrapper,
+    )
+
+    env = RewardWrapper(DroneObservationWrapper(
+        MultiRaceAviary("twogates", num_drones=1, device=dev)))
+    check(env.unwrapped is env.env.env, "wrappers: unwrapped")
+    obs, info = env.reset()
+    agent = load_controller(P32_AGENT)(0, obs[0],
+                                       dict(info, delay=0, device=str(dev)))
+    rewards, gate2_step, te = [], None, False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(P32_MAX_STEPS):
+        a = agent.predict(obs[0], ep_time=i / env.CTRL_FREQ)
+        obs, r, te, tr, _ = env.step([a])
+        rewards.append(r)
+        if gate2_step is None and int(env.unwrapped.current_gate[0]) >= 2:
+            gate2_step = i
+        if te or tr:
+            break
+    ms = (time.perf_counter() - t0) / len(rewards) * 1e3
+    check(te and gate2_step is not None and i <= gate2_step,
+          f"wrappers: terminated {te} at step {i}, gate 2 at {gate2_step}")
+    check(all(map(math.isfinite, rewards)) and sum(rewards) > 5.0,
+          f"wrappers: rewards {rewards}")
+    return {"steps": i + 1, "gate2_step": gate2_step,
+            "reward_sum": sum(rewards), "ms_per_step": ms}
+
+
+def _p32_video(dev, tmp):
+    """(c) race_video.run: the PNG frames, each decoded by the port's own
+    reader (no PIL) to H x W x 4."""
+    import contextlib
+    import io
+    import os
+
+    from gym_pybullet_adrp_tpu_torch.examples import race_video
+    from gym_pybullet_adrp_tpu_torch.utils.rendering import read_png
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rec = race_video.run(out=tmp, device=dev, **P32_VIDEO)
+    secs = time.perf_counter() - t0
+    files = sorted(f for f in os.listdir(rec.path) if f.endswith(".png"))
+    shapes = set()
+    for f in files:
+        with open(os.path.join(rec.path, f), "rb") as fh:
+            shapes.add(read_png(fh.read()).shape)
+    want = (P32_VIDEO["height"], P32_VIDEO["width"], 4)
+    check(len(files) == P32_VIDEO["frames"] and shapes == {want},
+          f"race_video: {len(files)} frames, shapes {shapes}")
+    return {"frames": len(files), "ms_per_frame":
+            secs / len(files) * 1e3}
+
+
+def _p32_reports(dev, tmp):
+    """(d) flight_report.record_episode on twogates (1 drone, the episode
+    cut to P32_REPORT_SEC): gate events G1 and G2; the same telemetry
+    through replay_viewer.build_html; render_report where matplotlib is
+    installed."""
+    import importlib.util
+
+    from gym_pybullet_adrp_tpu_torch import flight_report, replay_viewer
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+
+    cfg = load_config("twogates")
+    cfg.episode_len_sec = P32_REPORT_SEC
+    t0 = time.perf_counter()
+    poses, gates_t, events, track, freq = flight_report.record_episode(
+        cfg, P32_AGENT, 1, device=dev)
+    secs = time.perf_counter() - t0
+    labels = [e[3] for e in events if e[2] == "gate"]
+    check(labels[:2] == ["G1", "G2"] and poses.shape[1:] == (1, 6)
+          and np.isfinite(poses).all(),
+          f"record_episode: events {events}, poses {poses.shape}")
+    html = replay_viewer.build_html(poses, gates_t, events, track, freq,
+                                    "twogates, card")
+    check("requestAnimationFrame" in html and len(html) > 8000,
+          "build_html: not the replay page")
+    (Path(tmp) / "replay.html").write_text(html)
+    if importlib.util.find_spec("matplotlib") is None:
+        report = ("render_report not run: matplotlib is not installed on "
+                  "this machine")
+    else:
+        png = flight_report.render_report(poses, gates_t, events, track,
+                                          freq, Path(tmp) / "report.png")
+        report = f"render_report wrote {png.stat().st_size} B"
+    return {"steps": poses.shape[0], "events": events, "seconds": secs,
+            "ms_per_step": secs / poses.shape[0] * 1e3,
+            "html_bytes": len(html), "report": report}
+
+
+def _p32_live(dev):
+    """(e) live_fly.serve(port=0) in a thread: the page, 21000 RPM posted,
+    /state polled three times (z up by more than 0.05 m, a PNG), /reset;
+    then the page's loop, /state polled LIVE_POLL_S after each answer for
+    LIVE_SECONDS: the sim time it advanced over the wall time
+    (``RealTimeFactor``), and LiveSim's totals of those polls, the host
+    time of a control step and of a poll's frame."""
+    import base64
+    import threading
+    import urllib.request
+
+    from gym_pybullet_adrp_tpu_torch import live_fly
+    from gym_pybullet_adrp_tpu_torch.utils.profiling import RealTimeFactor
+
+    httpd = live_fly.serve(port=0, device=dev)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def get(path, data=None):
+        req = urllib.request.Request(base + path, data=data,
+                                     method="GET" if data is None
+                                     else "POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.read()
+
+    try:
+        page = get("/").decode()
+        check("input type=range" in page and "/rpm" in page,
+              "live_fly: the page")
+        get("/rpm", b"[21000,21000,21000,21000]")
+        s = []
+        for k in range(3):
+            if k:
+                time.sleep(0.3)
+            s.append(json.loads(get("/state")))
+        check(s[2]["t"] > s[0]["t"] and s[2]["pos"][2] > s[0]["pos"][2] + 0.05,
+              f"live_fly: z {s[0]['pos'][2]} -> {s[2]['pos'][2]}")
+        check(base64.b64decode(s[1]["png"])[:8] == b"\x89PNG\r\n\x1a\n",
+              "live_fly: /state's frame is not a PNG")
+        get("/reset", b"")
+        s3 = json.loads(get("/state"))
+        check(s3["t"] < s[2]["t"] and s3["pos"][2] < s[2]["pos"][2],
+              f"live_fly: /reset: t {s3['t']}, z {s3['pos'][2]}")
+        sim = httpd.sim
+        # the page's sliders start at the hover RPM
+        get("/rpm", json.dumps([sim.env.HOVER_RPM] * 4).encode())
+        get("/state")
+        n0, s0, p0, f0 = (sim.n_steps, sim.step_seconds, sim.n_polls,
+                          sim.frame_seconds)
+        t_sim = sim.t
+        rtf = RealTimeFactor()
+        while time.time() - rtf.start < LIVE_SECONDS:
+            get("/state")
+            time.sleep(LIVE_POLL_S)
+        get("/state")
+        wall = time.time() - rtf.start
+        factor = rtf.factor(sim.t - t_sim)
+        n, secs = sim.n_steps - n0, sim.step_seconds - s0
+        polls, frame = sim.n_polls - p0, sim.frame_seconds - f0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    check(n > 0 and polls > 0, f"live_fly: {n} steps in {polls} polls")
+    return {"z": [x["pos"][2] for x in s], "t": [x["t"] for x in s],
+            "real_time_factor": factor, "wall_s": wall, "polls": polls,
+            "steps": n, "ms_per_step": secs / n * 1e3,
+            "frame_ms_per_poll": frame / polls * 1e3,
+            "busy_share": (secs + frame) / wall}
+
+
+def phase32(dev, gpu, kernels, plain, totals, results, times11):
+    """The last tools on the card, none of which launches a kernel: (a)
+    the race wrappers, (b) hover_ceiling's probe at the 32 x 32 grid, (c)
+    race_video, (d) flight_report and replay_viewer, (e) live_fly; then
+    (f) the roofline shares of the kernels' rates measured in phases 6,
+    11 and 13, the census recounted on the card and calibrated by phase
+    15's weights, and every kernel's corrected operation bound beside its
+    time (K6 at or under 100%)."""
+    from gym_pybullet_adrp_tpu_torch.examples import hover_ceiling
+    from gym_pybullet_adrp_tpu_torch.utils import roofline as rf
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, plain, \
+            LaunchCount(kernels, totals) as la:
+        out["wrappers"] = w = _p32_wrappers(dev)
+        print(f"[32] (a) RewardWrapper(DroneObservationWrapper("
+              f"MultiRaceAviary(twogates, 1 drone))), {P32_AGENT}: "
+              f"terminated at step {w['steps']} (gate 2 counted on step "
+              f"{w['gate2_step'] + 1}), reward sum {w['reward_sum']:.4f}; "
+              f"{w['ms_per_step']:.4g} ms a wrapped step", flush=True)
+        ub = hover_ceiling.analytic_upper_bound()
+        t0 = time.perf_counter()
+        best, kp, kd = hover_ceiling.probe_best_return(P32_PROBE_GRID,
+                                                       device=dev)
+        out["probe"] = {"ub": ub, "best": best, "kp": kp, "kd": kd,
+                        "seconds": time.perf_counter() - t0}
+        check(ub - 1.0 <= best <= ub + 0.2 and best >= 471.0,
+              f"hover_ceiling: best {best} against the bound {ub}")
+        print(f"[32] (b) hover_ceiling.probe_best_return(grid="
+              f"{P32_PROBE_GRID}), {P32_PROBE_GRID ** 2} envs x 242 steps: "
+              f"best {best:.4f} (kp {kp:.4g}, kd {kd:.4g}), bound {ub:.4f}; "
+              f"{out['probe']['seconds']:.2f} s", flush=True)
+        out["video"] = v = _p32_video(dev, tmp)
+        print(f"[32] (c) race_video.run({P32_VIDEO}): {v['frames']} PNGs "
+              f"decoded to {P32_VIDEO['height']} x {P32_VIDEO['width']} x 4 "
+              f"by utils/rendering.read_png; {v['ms_per_frame']:.4g} ms a "
+              f"frame (step and render)", flush=True)
+        out["reports"] = r = _p32_reports(dev, tmp)
+        print(f"[32] (d) flight_report.record_episode(twogates cut to "
+              f"{P32_REPORT_SEC} s, {P32_AGENT}): {r['steps']} steps, "
+              f"events {r['events']}, {r['ms_per_step']:.4g} ms a step; "
+              f"replay_viewer.build_html {r['html_bytes']} B; "
+              f"{r['report']}", flush=True)
+        out["live"] = lv = _p32_live(dev)
+        print(f"[32] (e) live_fly.serve(port=0): z {lv['z']} over polls at "
+              f"t {lv['t']}; the page's loop ({LIVE_POLL_S} s after each "
+              f"answer) for {lv['wall_s']:.4g} s: {lv['polls']} polls, "
+              f"{lv['steps']} control steps, real-time factor "
+              f"{lv['real_time_factor']:.4g} (sim time over wall time); "
+              f"{lv['ms_per_step']:.4g} ms a control step (the 240 Hz rig: "
+              f"{LIVE_RIG_MS:.3g} ms), {lv['frame_ms_per_poll']:.4g} ms a "
+              f"poll's frame (render, 4x, PNG); the server busy "
+              f"{100 * lv['busy_share']:.4g}% of the wall time", flush=True)
+        torch.cuda.synchronize()
+    no_launches(la, plain, "phase 32")
+
+    # (f) the roofline shares
+    census = rf.measure_ops_per_env_step(dev)
+    cal_run = {k: rf.cal_ops(v, results["op_chain"]["weights"])
+               for k, v in census["by_op"].items()}
+    for k, v in census["ops"].items():
+        check(abs(v - rf.OPS_PER_ENV_STEP[k]) <= 0.02 * v,
+              f"roofline: {k} counts {v} on the card, stored "
+              f"{rf.OPS_PER_ENV_STEP[k]}")
+    n = 4096
+    k4_rate = n / results["race_step_fused"]["ms"] * 1e3
+    rows = [("K2 hover_rollout headline (phase 13)", "hover",
+             results["hover_rollout"]["env_steps_per_sec"],
+             rf.hover_rollout_bytes_per_step(n, 64)),
+            ("K5 race_rollout actions, 1 drone (phase 11)", "race1",
+             times11[1]["env_steps_per_sec"],
+             rf.race_rollout_bytes_per_step(n, 1)),
+            ("K5 race_rollout actions, 2 drones (phase 11)", "race2",
+             times11[2]["env_steps_per_sec"],
+             rf.race_rollout_bytes_per_step(n, 2)),
+            ("K4 race_step_fused, 2 drones (phase 6)", "race2", k4_rate,
+             rf.race_fused_bytes_per_step(n, 2))]
+    out["roofline"] = {}
+    for label, case, rate, by in rows:
+        pct = rf.roofline_pct(rate, rf.OPS_PER_ENV_STEP[case], by,
+                              rf.CAL_OPS_PER_ENV_STEP[case])
+        pct["fp32_cal_pct_this_run"] = 100.0 * rate * cal_run[case] / \
+            rf.H100["fp32_issues_per_s"]
+        out["roofline"][label] = dict(pct, rate=rate, bytes=by)
+        check(all(0.0 < pct[k] <= 100.0 for k in ("fp32_pct", "hbm_pct",
+                                                  "fp32_cal_pct")),
+              f"roofline: {label} {pct}")
+        print(f"[32] (f) {label}: {rate:.6g} env-steps/s x "
+              f"{rf.OPS_PER_ENV_STEP[case]:.0f} ops = fp32_pct "
+              f"{pct['fp32_pct']:.4g}, fp32_cal_pct {pct['fp32_cal_pct']:.4g} "
+              f"({pct['fp32_cal_pct_this_run']:.4g} by phase 15's weights), "
+              f"hbm_pct {pct['hbm_pct']:.4g} ({by:.4g} B a step)",
+              flush=True)
+    print(f"[32] (f) census on the card (ops per env-step): "
+          f"{census['ops']}; calibrated by phase 15's weights {cal_run}",
+          flush=True)
+    out["bounds"] = {}
+    for name, r in results.items():
+        if not isinstance(r, dict) or "bound_ms" not in r or "ms" not in r:
+            continue
+        out["bounds"][name] = share = r["bound_ms"] / r["ms"]
+        print(f"[32] (f) bound of {name}: {r['bound_ms']:.4g} ms "
+              f"({r['bound_by']}; {r['ops']:.4g} ops at "
+              f"{PEAK_FP32_OPS:.4g} issues/s, {r['bytes']:.4g} B at "
+              f"{PEAK_BYTES:.3g} B/s), card {r['ms']:.4g} ms: "
+              f"{100 * share:.4g}% of the card time", flush=True)
+    check(out["bounds"]["op_chain"] <= 1.0,
+          f"K6 above its bound: {out['bounds']['op_chain']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[32] phase 32 {out['seconds']:.1f} s; launches {dict(la)}; on "
+          f"{gpu}", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -3021,10 +3346,10 @@ def main():
           f"{'not measured' if k3_dev is None else f'{k3_dev:.4g} ms'} on "
           f"the device, {k3['loop_ms']:.4g} ms per launch in a host loop; "
           f"plain {k3['plain_ms']:.4g} ms", flush=True)
-    k3.update(bound((st.S, W, noise), (st.S,), count_ops(
-        lambda: race_window.race_window_plain(
-            env.kf, env.km, env.arm, env.ground_z, st.S, W, env.n_ticks,
-            env.dt, noise))))
+    oc = census(lambda: race_window.race_window_plain(
+        env.kf, env.km, env.arm, env.ground_z, st.S, W, env.n_ticks,
+        env.dt, noise))
+    k3.update(bound((st.S, W, noise), (st.S,), oc.ops, oc.flops))
     results["race_window"] = k3
 
     # ---- 4. race_step kernel vs plain -----------------------------------------
@@ -3181,10 +3506,11 @@ def main():
         return race_step.race_step_fused_plain(env.kf, env.km, env.arm,
                                                env.ground_z, *k4_in, **kw)
 
-    k4.update(bound(k4_in, k4_plain(), count_ops(k4_plain)))
+    oc = census(k4_plain)
+    k4.update(bound(k4_in, k4_plain(), oc.ops, oc.flops))
     print(f"[6] race_step bound: {k4['bytes']} B moved = "
           f"{k4['bytes'] / PEAK_BYTES * 1e3:.4g} ms, {k4['ops']} operations "
-          f"of the plain version = {k4['ops'] / PEAK_FLOPS * 1e3:.4g} ms: "
+          f"of the plain version = {ops_ms(k4['ops']):.4g} ms: "
           f"bound {k4['bound_ms']:.4g} ms ({k4['bound_by']})", flush=True)
     results["race_step_fused"] = k4
     scaling = {}
@@ -3267,6 +3593,10 @@ def main():
     tools = phase31(dev, gpu, kernels, plain, main_launches,
                     train_out["phase_ms"])
 
+    # ---- 32. the last tools, and the roofline -------------------------------
+    last_tools = phase32(dev, gpu, kernels, plain, main_launches, results,
+                         times11)
+
     src = "gym_pybullet_adrp_tpu_torch/csrc/"
     kernels = [
         {"name": "race_window", "route": "cuda",
@@ -3321,7 +3651,8 @@ def main():
             "rollout_times": times11, "hover_ppo": hover_ppo,
             "general": general, "surfaces": surfaces, "pixels": px,
             "firmware_and_grad": fitl, "distributed": dist_out,
-            "tools": tools, "launches": main_launches,
+            "tools": tools, "last_tools": last_tools,
+            "launches": main_launches,
         }, indent=1, default=str))
     print(gpu)
     print(json.dumps({"kernels": kernels}))

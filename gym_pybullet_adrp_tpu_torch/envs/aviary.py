@@ -46,7 +46,12 @@ def gym_class(cls):
 class LazySpaces:
     """``action_space``/``observation_space`` built by ``_actionSpace``/
     ``_observationSpace`` at first read, when gymnasium is imported, and
-    kept."""
+    kept; ``unwrapped`` is the env itself, as ``gymnasium.Env``'s (the
+    wrappers of utils/wrapper.py read it)."""
+
+    @property
+    def unwrapped(self):
+        return self
 
     def _lazy(self, key, build):
         cache = self.__dict__.setdefault("_space_cache", {})

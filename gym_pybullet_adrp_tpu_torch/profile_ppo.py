@@ -33,7 +33,7 @@ from .train_race import _row_adapter
 from .utils.config import load_config
 from .utils.enums import Physics, RaceMode
 from .utils.profiling import (
-    PEAK_BYTES, PEAK_FLOPS, OpCount, kernel_time, nbytes, traced,
+    PEAK_BYTES, PEAK_FP32_OPS, OpCount, kernel_time, nbytes, ops_ms, traced,
 )
 
 KERNELS = (("race_step", "race_step_kernel"),
@@ -200,6 +200,7 @@ def main(argv=None, device="cuda"):
     with OpCount(matmul=True) as c_roll:
         _, traj, _ = rollout_only()
     ops = c_train.ops - c_roll.ops
+    flops = c_train.flops - c_roll.flops
     traffic = c_train.bytes - c_roll.bytes
     # the least the update must move: GAE reads reward, value and done and
     # writes the advantages and returns; each epoch reads the minibatches'
@@ -211,17 +212,18 @@ def main(argv=None, device="cuda"):
                                              traj.logp) + 2 * nbytes(
         traj.value)) + n_updates * 6 * nbytes(
         *state["ts"].params.parameters()))
-    t_ops = ops / PEAK_FLOPS * 1e3
+    t_ops = ops_ms(ops, flops)
     t_traffic, t_floor = traffic / PEAK_BYTES * 1e3, floor / PEAK_BYTES * 1e3
-    out["update_counts"] = {"ops": ops, "bytes": traffic,
+    out["update_counts"] = {"ops": ops, "flops": flops, "bytes": traffic,
                             "traffic_ms": t_traffic, "floor_bytes": floor,
                             "bound_ms": max(t_ops, t_floor),
                             "bound_by": ("bytes" if t_floor >= t_ops
                                          else "operations")}
     print(f"\nupdate (GAE and {cfg.n_epochs} x {cfg.n_minibatches} "
           f"minibatches): {ops:.4g} operations counted op by op (float32 "
-          f"elementwise, reductions, 2mnk a matrix product) = {t_ops:.4g} "
-          f"ms at {PEAK_FLOPS / 1e12:g} TFLOP/s; {traffic:.4g} bytes read "
+          f"elementwise and reductions) and {flops:.4g} matrix-product "
+          f"flops (2mnk) = {t_ops:.4g} ms at {PEAK_FP32_OPS / 1e12:.4g}e12 "
+          f"FP32 issues/s (a flop pair one issue); {traffic:.4g} bytes read "
           f"and written op by op (the eager update's traffic) = "
           f"{t_traffic:.4g} ms at {PEAK_BYTES / 1e12:g} TB/s; bound "
           f"{out['update_counts']['bound_ms']:.4g} ms "

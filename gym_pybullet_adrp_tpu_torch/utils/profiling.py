@@ -4,11 +4,21 @@ Counterpart of gym_pybullet_adrp_tpu/utils/profiling.py (``trace`` :18,
 ``measure_steps_per_sec`` :28, ``RealTimeFactor`` :60): a
 ``torch.profiler`` capture around any code, a steps/s harness, and the
 reference's real-time factor. Beside them, the port's roofline tools,
-which take the place of XLA's cost model: ``OpCount``/``count_ops``
+which take the place of XLA's cost model: ``OpCount``/``census``
 count the operations a plain PyTorch function performs, ``bound`` turns
 bytes and operations into the least time the card could take, and
 ``traced``/``kernel_time`` read the card's device time per kernel from a
-trace.
+trace. utils/roofline.py turns counts per env-step into shares of the
+card's peaks.
+
+The currency of the operation bound is the FP32 issue. The port's
+kernels are built with ``-fmad=false``: no multiply and add is fused,
+so each pointwise operation ``OpCount`` counts is (at least) one FP32
+instruction, and the ceiling is the card's issue rate, 132 SMs x 128
+FP32 lanes x 1.98 GHz = 3.345e13 a second, not the data sheet's 67
+TFLOP/s, which counts a fused multiply-add as two. Matrix products are
+the exception: their 2 m n k flops run as fused multiply-adds in a
+library or a tile loop, so they count as flops / 2 issues.
 """
 
 import contextlib
@@ -18,9 +28,13 @@ from pathlib import Path
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-# H100 SXM data sheet: float32 outside the tensor cores, and HBM3
-PEAK_FLOPS = 67e12
+# NVIDIA H100 SXM5 80GB HBM3 (700 W): HBM3's rate (data sheet); the
+# FP32 issue rate, 132 SMs x 128 FP32 lanes x 1.98 GHz boost (the
+# Hopper whitepaper's SM and lane counts); and the data sheet's FP32
+# rate, which counts a fused multiply-add as 2 flops (matrix products)
 PEAK_BYTES = 3.35e12
+PEAK_FP32_OPS = 132 * 128 * 1.98e9
+PEAK_FMA_FLOPS = 2 * PEAK_FP32_OPS
 
 
 @contextlib.contextmanager
@@ -102,11 +116,12 @@ class RealTimeFactor:
 
 
 class OpCount(TorchDispatchMode):
-    """Counts the operations a plain version performs: one per output
-    element of every elementwise aten op (tagged pointwise), one per
-    input element of a reduction, and, with ``matmul``, 2 m n k per
-    matrix product. ``bytes`` adds up each op's tensor inputs and
-    outputs: the traffic of running the ops one by one."""
+    """Counts the operations a plain version performs: ``ops``, one per
+    output element of every elementwise aten op (tagged pointwise) and
+    one per input element of a reduction; with ``matmul``, ``flops``, 2 m
+    n k per matrix product. ``by_op`` splits both by aten op name.
+    ``bytes`` adds up each op's tensor inputs and outputs: the traffic of
+    running the ops one by one."""
 
     REDUCTIONS = ("aten.amin", "aten.amax", "aten.sum", "aten.mean")
     MATMULS = ("aten.mm", "aten.addmm", "aten.bmm", "aten.baddbmm")
@@ -114,32 +129,39 @@ class OpCount(TorchDispatchMode):
     def __init__(self, matmul=False):
         super().__init__()
         self.ops = 0
+        self.flops = 0
         self.bytes = 0
+        self.by_op = {}
         self.matmul = matmul
+
+    def _add(self, name, n, attr):
+        setattr(self, attr, getattr(self, attr) + n)
+        self.by_op[name] = self.by_op.get(name, 0) + n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         outs = out if isinstance(out, (tuple, list)) else (out,)
         name = str(func)
         if torch.Tag.pointwise in func.tags:
-            self.ops += sum(o.numel() for o in outs
-                            if isinstance(o, torch.Tensor))
+            self._add(name, sum(o.numel() for o in outs
+                                if isinstance(o, torch.Tensor)), "ops")
         elif name.startswith(self.REDUCTIONS):
-            self.ops += args[0].numel()
+            self._add(name, args[0].numel(), "ops")
         elif self.matmul and name.startswith(self.MATMULS):
             a = args[1] if name.startswith(("aten.addmm", "aten.baddbmm")) \
                 else args[0]
-            self.ops += 2 * outs[0].numel() * a.shape[-1]
+            self._add(name, 2 * outs[0].numel() * a.shape[-1], "flops")
         self.bytes += nbytes(*outs, *[a for a in args
                                       if isinstance(a, torch.Tensor)])
         return out
 
 
-def count_ops(fn, matmul=False):
-    """The operations ``fn()`` performs (``OpCount``)."""
+def census(fn, matmul=True):
+    """The ``OpCount`` of ``fn()``: ``ops``, ``flops``, ``by_op``; pass
+    its ``ops`` and ``flops`` to ``bound``, which weighs them apart."""
     with OpCount(matmul) as c:
         fn()
-    return c.ops
+    return c
 
 
 def nbytes(*tensors):
@@ -147,15 +169,22 @@ def nbytes(*tensors):
                if isinstance(t, torch.Tensor))
 
 
-def bound(inputs, outputs, ops):
+def ops_ms(ops, flops=0):
+    """The least time of ``ops`` pointwise operations and ``flops``
+    matrix-product flops at the FP32 issue rate (ms)."""
+    return (ops + flops / 2) / PEAK_FP32_OPS * 1e3
+
+
+def bound(inputs, outputs, ops, flops=0):
     """The least time the card could take: the larger of the bytes moved
     (each input read once, each output written once) over HBM's rate and
-    the operations over the float32 peak."""
+    ``ops`` pointwise operations plus ``flops`` / 2 (matrix products'
+    fused multiply-adds) over the FP32 issue rate."""
     b = nbytes(*inputs) + nbytes(*outputs)
-    t_b, t_o = b / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
+    t_b, t_o = b / PEAK_BYTES * 1e3, ops_ms(ops, flops)
     return {"bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations",
-            "bytes": b, "ops": ops}
+            "bytes": b, "ops": ops, "flops": flops}
 
 
 # ---------------------------------------------------------------------------

@@ -112,8 +112,9 @@ def test_slice_reproduces_published_lap():
 def test_package_imports_no_jax():
     """Importing every module of the port, the trainer, the learner and
     the hover env, kernels and calibration, the CF and Beta envs, the
-    controller API, the examples, distributed training and the training
-    tools included, leaves jax, flax, yaml,
+    controller API, the examples, distributed training, the training
+    tools, the race wrappers, the reports, live flight and the roofline
+    included, leaves jax, flax, yaml,
     gymnasium, msgpack, PIL, matplotlib and the JAX package unimported
     (the card's machine has none of them)."""
     code = (
@@ -139,7 +140,10 @@ def test_package_imports_no_jax():
         "'examples.pid_velocity', 'examples.downwash', 'examples.debug', "
         "'examples.apg', 'examples.race_grad', 'parallel.hosts', "
         "'parallel.distributed', 'scaling', '_scaling_worker', "
-        "'profile_ppo', 'utils.profiling', 'examples.learn')]\n"
+        "'profile_ppo', 'utils.profiling', 'examples.learn', "
+        "'utils.wrapper', 'examples.hover_ceiling', 'examples.race_video', "
+        "'flight_report', 'replay_viewer', 'live_fly', 'utils.roofline', "
+        "'roofline')]\n"
         "missing = [m for m in new if m not in sys.modules]\n"
         "print('LOADED', bad, 'MISSING', missing)\n"
         "sys.exit(1 if bad or missing else 0)\n"

@@ -3,7 +3,7 @@ examples/learn.py, scaling.py) against the JAX package, on the CPU.
 
   profiling: the port's tests/test_utils.py:128 (steps/s > 0 in both
     timing modes, a positive real-time factor), a trace written, and
-    ``count_ops`` on functions whose counts are known exactly.
+    ``census`` on functions whose counts are known exactly.
   profile_ppo.main at --envs 128 --n_steps 8, with and without
     --fuse_policy: all four phases printed, finite and positive.
   examples.learn.run(local=False, n_envs=16) (tests/test_examples.py:44):
@@ -63,11 +63,12 @@ def test_count_ops_known_functions():
         (a * b + c).sum()
     assert oc.ops == 600 and oc.bytes == 3 * 800 + 3 * 800 + 804
     m, n = torch.rand(8, 16), torch.rand(16, 4)
-    assert profiling.count_ops(lambda: m @ n, matmul=True) == 1024
-    assert profiling.count_ops(lambda: m @ n) == 0
+    oc = profiling.census(lambda: m @ n)
+    assert (oc.ops, oc.flops) == (0, 1024)
+    assert profiling.census(lambda: m @ n, matmul=False).flops == 0
     bias = torch.rand(4)
-    assert profiling.count_ops(lambda: torch.addmm(bias, m, n),
-                               matmul=True) == 1024
+    oc = profiling.census(lambda: torch.addmm(bias, m, n))
+    assert (oc.ops, oc.flops) == (0, 1024)
     bd = profiling.bound((a, b), (c,), 600)
     assert bd["bytes"] == 2400 and bd["bound_by"] == "bytes"
     assert bd["bound_ms"] == pytest.approx(2400 / profiling.PEAK_BYTES * 1e3)
