@@ -212,8 +212,7 @@ def kernel_ms(fn, kernel, n=20):
         for _ in range(n):
             fn()
 
-    _, events = traced(loop)
-    count, ms = kernel_time(events, kernel)
+    count, ms = kernel_time(traced(loop).events, kernel)
     return ms / count if count else None
 
 
@@ -234,8 +233,9 @@ def profile_steps(env, rows, draws, kw, step_fn, n=64):
             st = st._replace(S=out[0], R=out[1], GG=out[2], OO=out[3],
                              EP=out[4])
 
-    wall, events = traced(loop)
-    count, kern = kernel_time(events, "race_step_kernel")
+    tr = traced(loop)
+    wall = tr.wall_ms
+    count, kern = kernel_time(tr.events, "race_step_kernel")
     if not count:
         return {"wall_ms": wall, "launches": 0, "kernel_ms": "not measured",
                 "idle_share": "not measured"}
@@ -705,9 +705,9 @@ def phase10(dev, gpu, eval_race, kernels, plain, totals, n_envs=4096,
           flush=True)
     check(last > first, f"mean reward did not rise ({first} -> {last})")
     # the device's idle share over one traced iteration
-    t_wall, events = traced(lambda: res["train_step"](res["ts"]))
-    busy = sum(us for _, _, us in events) / 1e3
-    top = sorted(events, key=lambda e: -e[2])[:5]
+    tr = traced(lambda: res["train_step"](res["ts"]))
+    t_wall, busy = tr.wall_ms, tr.busy_ms()
+    top = sorted(tr.events, key=lambda e: -e[2])[:5]
     idle = max(0.0, 1.0 - busy / t_wall)
     print(f"[10] one traced iteration: wall {t_wall:.4g} ms, device busy "
           f"{busy:.4g} ms (idle share {idle:.3f}); top device time: "
@@ -1577,9 +1577,9 @@ def phase17(dev, gen, gpu, eval_race, race_window, kernels, plain, totals,
     phase_ms = {k: 1e3 * sum(t[k] for t in steady) / len(steady)
                 for k in steady[0]}
     rate = res["cfg"].batch_size / (phase_ms["iteration"] / 1e3)
-    t_wall, events = traced(lambda: res["train_step"](res["ts"]))
-    busy = sum(us for _, _, us in events) / 1e3
-    k3_n, k3_ms = kernel_time(events, "race_window_kernel")
+    tr = traced(lambda: res["train_step"](res["ts"]))
+    t_wall, busy = tr.wall_ms, tr.busy_ms()
+    k3_n, k3_ms = kernel_time(tr.events, "race_window_kernel")
     idle = max(0.0, 1.0 - busy / t_wall)
     out["fast_trainer"] = {"launches_per_iteration": la["race_window"]
                            // iters, "phase_ms": phase_ms,

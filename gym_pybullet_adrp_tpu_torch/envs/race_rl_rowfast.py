@@ -36,6 +36,7 @@ from ..models.policy import ActorCritic
 from ..ops import race_rollout as race_rollout_ops
 from ..ops import race_step as race_step_ops
 from ..ops import race_window as race_window_ops
+from ..utils import profiling
 from ..utils.constants import GATE_Z_LOW, GATE_Z_TALL, RAD_TO_DEG
 from ..utils.enums import DroneModel, Physics, RaceMode
 from .race import RaceSpec, RaceTrack, model_scalars
@@ -223,6 +224,16 @@ class RowRaceEnv:
 
     # ---- random draws --------------------------------------------------------
 
+    def _host_copy(self, values):
+        """``values`` as float32 on the env's device. On the card the
+        copy from pageable host memory waits for the stream to drain; each
+        is a ``draws.host_copies`` span and counts one ``host_copies`` in
+        the enclosing span (one counts dict a draws span, not a copy)."""
+        profiling.count("host_copies")
+        with profiling.span("draws.host_copies"):
+            return torch.tensor(values, dtype=torch.float32,
+                                device=self.device)
+
     def _uniform(self, shape, lo, hi):
         u = torch.rand(shape, generator=self.generator, device=self.device)
         return lo + u * (hi - lo)
@@ -233,8 +244,8 @@ class RowRaceEnv:
         dev, f32 = self.device, torch.float32
         noise_rows = None
         if spec.disturbances:
-            lo = torch.tensor(spec.dyn_dist_low, dtype=f32, device=dev)
-            hi = torch.tensor(spec.dyn_dist_high, dtype=f32, device=dev)
+            lo = self._host_copy(spec.dyn_dist_low)
+            hi = self._host_copy(spec.dyn_dist_high)
             nt = self.n_ticks
             wind = self._uniform((nt, 3, T, LANE), lo[:, None, None],
                                  hi[:, None, None])
@@ -242,8 +253,8 @@ class RowRaceEnv:
                                 device=dev) * spec.action_noise_std
             noise_rows = torch.cat([wind, act_n], dim=1).contiguous()
         if spec.random_drone_state:
-            rp = torch.tensor(spec.rs_pos, dtype=f32, device=dev)
-            rr = torch.tensor(spec.rs_rot, dtype=f32, device=dev)
+            rp = self._host_copy(spec.rs_pos)
+            rr = self._host_copy(spec.rs_rot)
             dpos = self._uniform((3, T, LANE), rp[:, 0, None, None],
                                  rp[:, 1, None, None])
             drpy = self._uniform((3, T, LANE), rr[:, 0, None, None],
@@ -254,14 +265,14 @@ class RowRaceEnv:
         pose = ([self._init_pos[k] + dpos[k] for k in range(3)]
                 + [self._init_rpy[k] + drpy[k] for k in range(3)])
         mass0 = CF2X_LEGACY["mass"]
-        J0 = torch.tensor(CF2X_LEGACY["J"], dtype=f32, device=dev)
+        J0 = self._host_copy(CF2X_LEGACY["J"])
         if spec.random_drone_inertia:
             m_off = self._uniform((T, LANE), spec.ri_mass[0],
                                   spec.ri_mass[1])
-            lo_j = torch.tensor([spec.ri_ixx[0], spec.ri_iyy[0],
-                                 spec.ri_izz[0]], dtype=f32, device=dev)
-            hi_j = torch.tensor([spec.ri_ixx[1], spec.ri_iyy[1],
-                                 spec.ri_izz[1]], dtype=f32, device=dev)
+            lo_j = self._host_copy([spec.ri_ixx[0], spec.ri_iyy[0],
+                                    spec.ri_izz[0]])
+            hi_j = self._host_copy([spec.ri_ixx[1], spec.ri_iyy[1],
+                                    spec.ri_izz[1]])
             j_off = self._uniform((3, T, LANE), lo_j[:, None, None],
                                   hi_j[:, None, None])
             mass = torch.clamp(mass0 + m_off, 0.0, 100.0)
@@ -269,12 +280,10 @@ class RowRaceEnv:
         else:
             mass = torch.full((T, LANE), mass0, dtype=f32, device=dev)
             J = J0[:, None, None].expand(3, T, LANE)
-        gate_nom = torch.from_numpy(
-            np.ascontiguousarray(self.gates[:, [0, 1, 5]])
-        ).to(dev)[:, :, None, None]                      # (G, 3, 1, 1)
-        obst_nom = torch.from_numpy(
-            np.ascontiguousarray(self.obstacles[:, :2])
-        ).to(dev)[:, :, None, None]                      # (O, 2, 1, 1)
+        gate_nom = self._host_copy(
+            self.gates[:, [0, 1, 5]])[:, :, None, None]  # (G, 3, 1, 1)
+        obst_nom = self._host_copy(
+            self.obstacles[:, :2])[:, :, None, None]     # (O, 2, 1, 1)
         if spec.random_gates_obstacles:
             g_off = self._uniform((G, 3, Tb, LANE), *spec.rg_gates)
             o_off = self._uniform((O, 2, Tb, LANE), *spec.rg_obstacles)
@@ -293,9 +302,10 @@ class RowRaceEnv:
 
     def step_draws(self) -> StepDraws:
         """The random inputs of one step, from the env's generator."""
-        if self._static_draws is not None:
-            return self._static_draws
-        return self._sample_draws()
+        with profiling.span("rollout.draws"):
+            if self._static_draws is not None:
+                return self._static_draws
+            return self._sample_draws()
 
     # ---- reset ---------------------------------------------------------------
 
@@ -461,17 +471,19 @@ class RowRaceEnv:
         """The random inputs of K steps, stacked along a leading K axis and
         drawn in the order K ``step_draws`` calls would draw them. Fully
         deterministic configs give one shared (1, ...) block."""
-        if self._static_draws is not None:
-            if self._static_stack is None:
-                d = self._static_draws
-                self._static_stack = StepDraws(
-                    None, d.RST[None], d.RSTG[None], d.RSTO[None])
-            return self._static_stack
-        steps = [self._sample_draws() for _ in range(K)]
-        noise = (None if steps[0].noise_rows is None
-                 else torch.stack([d.noise_rows for d in steps]))
-        return StepDraws(noise, *[torch.stack([getattr(d, f) for d in steps])
-                                  for f in ("RST", "RSTG", "RSTO")])
+        with profiling.span("rollout.draws"):
+            if self._static_draws is not None:
+                if self._static_stack is None:
+                    d = self._static_draws
+                    self._static_stack = StepDraws(
+                        None, d.RST[None], d.RSTG[None], d.RSTO[None])
+                return self._static_stack
+            steps = [self._sample_draws() for _ in range(K)]
+            noise = (None if steps[0].noise_rows is None
+                     else torch.stack([d.noise_rows for d in steps]))
+            return StepDraws(noise, *[
+                torch.stack([getattr(d, f) for d in steps])
+                for f in ("RST", "RSTG", "RSTO")])
 
     def _kernel_kw(self):
         return dict(n_ticks=self.n_ticks, dt=self.dt,
@@ -629,6 +641,10 @@ def make_policy_rollout(env: RowRaceEnv, n_steps: int, kernel_chunk: int = 16):
     use_chunks = bool(kernel_chunk) and n_steps % kernel_chunk == 0
 
     def rollout_override(ts):
+        with profiling.span("rollout"):
+            return _rollout(ts)
+
+    def _rollout(ts):
         actn = torch.randn((n_steps, 4, T, LANE), generator=ts.rng,
                            device=env.device)
         pack = pack_policy_params(ts.params)
@@ -650,48 +666,51 @@ def make_policy_rollout(env: RowRaceEnv, n_steps: int, kernel_chunk: int = 16):
             for c in range(n_steps // K):
                 st, obs_last, tr = env.rollout_policy(
                     st, obs_rows, pack, actn[c * K:(c + 1) * K])
-                # Transition.obs is the pre-step obs each action saw
-                ys["obs"].append(torch.cat([obs_rows[None], tr["obs"][:-1]]))
-                for k in ("action", "logp", "value", "reward", "done"):
-                    ys[k].append(tr[k])
-                for i in range(K):
-                    account(tr["reward"][i], tr["done"][i])
+                with profiling.span("rollout.account"):
+                    # Transition.obs is the pre-step obs each action saw
+                    ys["obs"].append(torch.cat([obs_rows[None],
+                                                tr["obs"][:-1]]))
+                    for k in ("action", "logp", "value", "reward", "done"):
+                        ys[k].append(tr[k])
+                    for i in range(K):
+                        account(tr["reward"][i], tr["done"][i])
                 obs_rows = obs_last
-            seq = {k: torch.cat(v) for k, v in ys.items()
-                   if k not in ("fin_ret", "fin_len")}
         else:
             for i in range(n_steps):
                 st, obs2, tr = env.step_policy(st, obs_rows, pack, actn[i])
-                ys["obs"].append(obs_rows)
-                for k in ("action", "logp", "value", "reward", "done"):
-                    ys[k].append(tr[k])
-                account(tr["reward"], tr["done"])
+                with profiling.span("rollout.account"):
+                    ys["obs"].append(obs_rows)
+                    for k in ("action", "logp", "value", "reward", "done"):
+                        ys[k].append(tr[k])
+                    account(tr["reward"], tr["done"])
                 obs_rows = obs2
-            seq = {k: torch.stack(v) for k, v in ys.items()
+        with profiling.span("rollout.flatten"):
+            join = torch.cat if use_chunks else torch.stack
+            seq = {k: join(v) for k, v in ys.items()
                    if k not in ("fin_ret", "fin_len")}
-        done_flat = seq["done"].reshape(n_steps, B) > 0.5
-        if N > 1:
-            done_flat = done_flat.repeat_interleave(N, dim=1)
-        # the flat (time, batch, ...) layout, materialised once
-        traj = Transition(
-            obs=chrows_to_flat(seq["obs"], C).contiguous(),
-            action=chrows_to_flat(seq["action"], 4).contiguous(),
-            logp=rows_to_flat(seq["logp"]).contiguous(),
-            value=rows_to_flat(seq["value"]).contiguous(),
-            reward=rows_to_flat(seq["reward"]).contiguous(),
-            done=done_flat,
-        )
-        metrics = {
-            "finished_return": rows_to_flat(torch.stack(ys["fin_ret"])),
-            "finished_len": rows_to_flat(
-                torch.stack(ys["fin_len"])).to(torch.int32),
-        }
-        ts = ts._replace(
-            env_state=(st, obs_rows),
-            last_obs=chrows_to_flat(obs_rows[None], C)[0],
-            ep_return=rows_to_flat(ep_ret[None])[0],
-            ep_len=rows_to_flat(ep_len[None])[0].to(torch.int32),
-        )
+            done_flat = seq["done"].reshape(n_steps, B) > 0.5
+            if N > 1:
+                done_flat = done_flat.repeat_interleave(N, dim=1)
+            # the flat (time, batch, ...) layout, materialised once
+            traj = Transition(
+                obs=chrows_to_flat(seq["obs"], C).contiguous(),
+                action=chrows_to_flat(seq["action"], 4).contiguous(),
+                logp=rows_to_flat(seq["logp"]).contiguous(),
+                value=rows_to_flat(seq["value"]).contiguous(),
+                reward=rows_to_flat(seq["reward"]).contiguous(),
+                done=done_flat,
+            )
+            metrics = {
+                "finished_return": rows_to_flat(torch.stack(ys["fin_ret"])),
+                "finished_len": rows_to_flat(
+                    torch.stack(ys["fin_len"])).to(torch.int32),
+            }
+            ts = ts._replace(
+                env_state=(st, obs_rows),
+                last_obs=chrows_to_flat(obs_rows[None], C)[0],
+                ep_return=rows_to_flat(ep_ret[None])[0],
+                ep_len=rows_to_flat(ep_len[None])[0].to(torch.int32),
+            )
         return ts, traj, metrics
 
     def adapter_step(env_state, action):

@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from ..utils import profiling
 from . import _build
 from .race_step import (
     ACT_DIM, INFO_CHANNELS, R_CHANNELS, RST_CHANNELS, _POLICY_OUT,
@@ -114,7 +115,9 @@ def race_rollout(kf, km, arm, ground_z, S, A_seq, R, GG, OO, EP, RST_seq,
     (csrc/race_rollout.cu: a block per 32-env tile looping over the K
     steps of K4's tile step; in policy mode 512 threads run each step's
     MLP first, ``race_step.launch_geometry``) on the current stream,
-    counting the launch in ``race_rollout.launches``. Any other device
+    counting the launch in ``race_rollout.launches``; the host's part, from
+    the checks to the launch's return, is the span ``race_rollout.launch``
+    (utils/profiling.py). Any other device
     raises, and so does a call that autograd would record (the kernel has
     no backward)."""
     _build.refuse_grad("race_rollout", _build.RACE_EAGER, S, A_seq, R,
@@ -130,65 +133,68 @@ def race_rollout(kf, km, arm, ground_z, S, A_seq, R, GG, OO, EP, RST_seq,
                                   OO, EP, RST_seq, RSTG_seq, RSTO_seq, **kw)
     if dev.type != "cuda":
         raise ValueError(f"race_rollout: unsupported device {dev}")
-    wc = window_consts(kf, km, arm, ground_z, dt, n_ticks)
-    tc = tail_consts(spec_tail, ground_z)
-    N, Tb, G, O, T, C = kernel_dims(tc, "race_rollout")
-    policy = policy_pack is not None
-    K = _seq_len(A_seq, actn_seq, policy)
-    for name, x, shape in (
-            ("S", S, (S_CHANNELS, T, LANE)),
-            ("R", R, (R_CHANNELS, T, LANE)), ("GG", GG, (3 * G, Tb, LANE)),
-            ("OO", OO, (2 * O, Tb, LANE)), ("EP", EP, (Tb, LANE))):
-        _check_block(name, x, shape, dev)
-    strides = []   # floats per step; 0: one block shared by every step
-    for name, x, shape in (
-            ("RST_seq", RST_seq, (RST_CHANNELS, T, LANE)),
-            ("RSTG_seq", RSTG_seq, (3 * G, Tb, LANE)),
-            ("RSTO_seq", RSTO_seq, (2 * O, Tb, LANE))):
-        if not isinstance(x, torch.Tensor) or x.dim() != 4 \
-                or x.shape[0] not in (1, K):
-            raise ValueError(f"{name}: expected a (1 or {K}, ...) sequence")
-        _check_block(name, x, (x.shape[0],) + shape, dev)
-        strides.append(0 if x.shape[0] == 1 else x[0].numel())
-    layout = None
-    if policy:
-        layout = check_policy_pack(policy_pack, C, policy_hidden, dev)
-        _check_block("obs_rows", obs_rows, (C, T, LANE), dev)
-        _check_block("actn_seq", actn_seq, (K, ACT_DIM, T, LANE), dev)
-    else:
-        _check_block("A_seq", A_seq, (K, ACT_DIM, T, LANE), dev)
-    if noise_rows_seq is not None:
-        _check_block("noise_rows_seq", noise_rows_seq,
-                     (K, n_ticks, NOISE_CHANNELS, T, LANE), dev)
+    with profiling.span("race_rollout.launch"):
+        wc = window_consts(kf, km, arm, ground_z, dt, n_ticks)
+        tc = tail_consts(spec_tail, ground_z)
+        N, Tb, G, O, T, C = kernel_dims(tc, "race_rollout")
+        policy = policy_pack is not None
+        K = _seq_len(A_seq, actn_seq, policy)
+        for name, x, shape in (
+                ("S", S, (S_CHANNELS, T, LANE)),
+                ("R", R, (R_CHANNELS, T, LANE)), ("GG", GG, (3 * G, Tb, LANE)),
+                ("OO", OO, (2 * O, Tb, LANE)), ("EP", EP, (Tb, LANE))):
+            _check_block(name, x, shape, dev)
+        strides = []   # floats per step; 0: one block shared by every step
+        for name, x, shape in (
+                ("RST_seq", RST_seq, (RST_CHANNELS, T, LANE)),
+                ("RSTG_seq", RSTG_seq, (3 * G, Tb, LANE)),
+                ("RSTO_seq", RSTO_seq, (2 * O, Tb, LANE))):
+            if not isinstance(x, torch.Tensor) or x.dim() != 4 \
+                    or x.shape[0] not in (1, K):
+                raise ValueError(
+                    f"{name}: expected a (1 or {K}, ...) sequence")
+            _check_block(name, x, (x.shape[0],) + shape, dev)
+            strides.append(0 if x.shape[0] == 1 else x[0].numel())
+        layout = None
+        if policy:
+            layout = check_policy_pack(policy_pack, C, policy_hidden, dev)
+            _check_block("obs_rows", obs_rows, (C, T, LANE), dev)
+            _check_block("actn_seq", actn_seq, (K, ACT_DIM, T, LANE), dev)
+        else:
+            _check_block("A_seq", A_seq, (K, ACT_DIM, T, LANE), dev)
+        if noise_rows_seq is not None:
+            _check_block("noise_rows_seq", noise_rows_seq,
+                         (K, n_ticks, NOISE_CHANNELS, T, LANE), dev)
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+        def empty(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    state = [empty(S_CHANNELS, T, LANE), empty(R_CHANNELS, T, LANE),
-             empty(3 * G, Tb, LANE), empty(2 * O, Tb, LANE), empty(Tb, LANE)]
-    rew, done = empty(K, T, LANE), empty(K, Tb, LANE)
-    # in policy mode the obs stream is also the carry between steps
-    obs = empty(K, C, T, LANE) if emit_obs or policy else None
-    info = empty(K, INFO_CHANNELS, T, LANE) if telemetry else None
-    pol = ([empty(K, ACT_DIM, T, LANE), empty(K, T, LANE),
-            empty(K, T, LANE)] if policy else [None, None, None])
-    args = RolloutArgs(
-        S.data_ptr(), R.data_ptr(), GG.data_ptr(), OO.data_ptr(),
-        EP.data_ptr(), None if policy else A_seq.data_ptr(),
-        ptr(obs_rows if policy else None), ptr(policy_pack),
-        ptr(actn_seq if policy else None), RST_seq.data_ptr(),
-        RSTG_seq.data_ptr(), RSTO_seq.data_ptr(), ptr(noise_rows_seq),
-        *strides, *[x.data_ptr() for x in state], rew.data_ptr(),
-        done.data_ptr(), ptr(obs), ptr(info), *[ptr(x) for x in pol], K,
-    )
-    consts = step_consts_struct(wc, tc, telemetry, elim_penalty, layout)
-    lib = _build.library("race_rollout")
-    with torch.cuda.device(dev):
-        err = lib.adrp_race_rollout(
-            ctypes.addressof(args), ctypes.addressof(consts),
-            torch.cuda.current_stream(dev).cuda_stream,
+        state = [empty(S_CHANNELS, T, LANE), empty(R_CHANNELS, T, LANE),
+                 empty(3 * G, Tb, LANE), empty(2 * O, Tb, LANE),
+                 empty(Tb, LANE)]
+        rew, done = empty(K, T, LANE), empty(K, Tb, LANE)
+        # in policy mode the obs stream is also the carry between steps
+        obs = empty(K, C, T, LANE) if emit_obs or policy else None
+        info = empty(K, INFO_CHANNELS, T, LANE) if telemetry else None
+        pol = ([empty(K, ACT_DIM, T, LANE), empty(K, T, LANE),
+                empty(K, T, LANE)] if policy else [None, None, None])
+        args = RolloutArgs(
+            S.data_ptr(), R.data_ptr(), GG.data_ptr(), OO.data_ptr(),
+            EP.data_ptr(), None if policy else A_seq.data_ptr(),
+            ptr(obs_rows if policy else None), ptr(policy_pack),
+            ptr(actn_seq if policy else None), RST_seq.data_ptr(),
+            RSTG_seq.data_ptr(), RSTO_seq.data_ptr(), ptr(noise_rows_seq),
+            *strides, *[x.data_ptr() for x in state], rew.data_ptr(),
+            done.data_ptr(), ptr(obs), ptr(info), *[ptr(x) for x in pol], K,
         )
-    launch_error("race_rollout", err)
+        consts = step_consts_struct(wc, tc, telemetry, elim_penalty, layout)
+        lib = _build.library("race_rollout")
+        with torch.cuda.device(dev):
+            err = lib.adrp_race_rollout(
+                ctypes.addressof(args), ctypes.addressof(consts),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        launch_error("race_rollout", err)
     race_rollout.launches += 1
     res = tuple(state) + (rew, done)
     res += (obs,) if emit_obs else ()

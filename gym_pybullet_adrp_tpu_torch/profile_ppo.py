@@ -7,7 +7,10 @@ launch a step) or, with ``--fuse_policy``, inside it (race_rollout,
 ``--kernel_chunk`` steps a launch). The JAX script reads XLA's cost model
 (``cost``, :34-45), which has no counterpart here; in its place this
 prints, on the card, the device time of one traced iteration by kernel
-and by top operation and the device's idle share, and, on any device,
+and by top operation, the device's idle share (one less the union of its
+intervals over the wall time), the host's spans (utils/profiling.py: host
+and self ms and counts by span) and the device's idle time by the
+innermost span the host was in, and, on any device,
 the update's operations and its bytes read and written op by op
 (``utils.profiling.OpCount``, the eager update's traffic) against the
 card's peaks, beside its bound: the larger of those operations at the
@@ -33,7 +36,8 @@ from .train_race import _row_adapter
 from .utils.config import load_config
 from .utils.enums import Physics, RaceMode
 from .utils.profiling import (
-    PEAK_BYTES, PEAK_FP32_OPS, OpCount, kernel_time, nbytes, ops_ms, traced,
+    PEAK_BYTES, PEAK_FP32_OPS, OpCount, idle_by_span, kernel_time, nbytes,
+    ops_ms, span_table, traced,
 )
 
 KERNELS = (("race_step", "race_step_kernel"),
@@ -172,24 +176,39 @@ def main(argv=None, device="cuda"):
     out["env_steps_per_sec"] = steps / t_train
     print(f"\nenv-steps/s end-to-end : {steps / t_train:,.0f}")
 
-    # ---- one traced iteration: device time by kernel and top op ---------
+    # ---- one traced iteration: device time by kernel and top op, the
+    # host's spans, and the device's idle time by span ------------------
     if device.type == "cuda":
-        wall, events = traced(train)
-        busy = sum(us for _, _, us in events) / 1e3
-        kern = {k: kernel_time(events, sym) for k, sym in KERNELS}
-        top = sorted(events, key=lambda e: -e[2])[:8]
+        tr = traced(train)
+        wall, busy = tr.wall_ms, tr.busy_ms()
+        kern = {k: kernel_time(tr.events, sym) for k, sym in KERNELS}
+        top = sorted(tr.events, key=lambda e: -e[2])[:8]
+        idle = {k: us / 1e3 for k, us in idle_by_span(tr.trace).items()}
+        spans = span_table(tr.spans)
         out["trace"] = {"wall_ms": wall, "busy_ms": busy,
                         "idle_share": 1.0 - busy / wall,
                         "kernels": kern,
-                        "top": [(k, c, us / 1e3) for k, c, us in top]}
+                        "top": [(k, c, us / 1e3) for k, c, us in top],
+                        "spans": spans, "idle_by_span_ms": idle}
         print(f"\none traced iteration: wall {wall:.4g} ms, device busy "
-              f"{busy:.4g} ms, idle share {out['trace']['idle_share']:.3f}")
+              f"{busy:.4g} ms (the union of its intervals), idle share "
+              f"{out['trace']['idle_share']:.3f}")
         for k, (n, ms) in kern.items():
             if n:
                 print(f"  {k}: {n} launches, {ms:.4g} ms on the device "
                       f"({ms / n:.4g} ms a launch)")
         for k, c, ms in out["trace"]["top"]:
             print(f"  {k[:60]:<60} x{c:<5} {ms:9.4g} ms")
+        print(f"\nspans (host ms):\n  {'span':<22}{'n':>6}{'ms':>11}"
+              f"{'self ms':>11}   counts")
+        for name, row in spans.items():
+            cnt = ", ".join(f"{k} {v}" for k, v in row["counts"].items())
+            print(f"  {name:<22}{row['n']:>6}{row['ms']:>11.4g}"
+                  f"{row['self_ms']:>11.4g}   {cnt}")
+        print("\nthe device's idle time by the innermost span the host was "
+              "in (ms):")
+        for name, ms in idle.items():
+            print(f"  {name:<28}{ms:>11.4g}")
     else:
         out["trace"] = None
         print("\none traced iteration: not measured (no CUDA device)")

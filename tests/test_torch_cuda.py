@@ -1055,3 +1055,66 @@ def test_roofline_census_on_the_card(dev):
     assert got["ops"] == ref["ops"] and got["by_op"] == ref["by_op"]
     for k, v in got["ops"].items():
         assert abs(v - rf.OPS_PER_ENV_STEP[k]) <= 0.02 * v
+
+
+def test_rollout_spans_on_the_trace_clock(dev, tmp_path):
+    """Two policy rollouts (level3, 2 drones COMPETE, 1024 envs, 64 steps,
+    K5 16 steps a launch) under ``profiling.trace()``: every
+    race_rollout_kernel launch's CUDA API call falls inside a
+    ``race_rollout.launch`` span on the trace's clock, within 50 us; 4
+    launch spans and 576 host copies a rollout."""
+    import json
+
+    from gym_pybullet_adrp_tpu_torch.envs import race as race_mod
+    from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import (
+        make_policy_rollout, make_row_env,
+    )
+    from gym_pybullet_adrp_tpu_torch.rl.ppo import (
+        EnvAdapter, PPOConfig, make_ppo_core,
+    )
+    from gym_pybullet_adrp_tpu_torch.utils import profiling
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+    from gym_pybullet_adrp_tpu_torch.utils.enums import Physics, RaceMode
+
+    cfg, B, N = load_config("level3"), 1024, 2
+    spec = race_mod.RaceSpec.from_config(cfg, N, RaceMode.COMPETE,
+                                         Physics.PYB)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    env = make_row_env(spec, race_mod.track_from_config(cfg, N), B,
+                       device=dev, generator=gen, end_after_gate=2,
+                       per_drone_reward=True)
+    b_reset, override, step = make_policy_rollout(env, 64, 16)
+    adapter = EnvAdapter(batched_reset=b_reset, step=step,
+                         obs_dim=env.obs_size, act_dim=4, generator=gen)
+    init_fn, _, _ = make_ppo_core(
+        PPOConfig(n_envs=B * N, n_steps=64, shuffle_block=512), adapter,
+        rollout_override=override, device=dev)
+    ts = init_fn(0)
+    with torch.no_grad():
+        ts = override(ts)[0]                        # warm-up: the build
+        torch.cuda.synchronize()
+        profiling.take()
+        with profiling.trace(str(tmp_path)):
+            for _ in range(2):
+                ts = override(ts)[0]
+            torch.cuda.synchronize()
+    recs = profiling.take()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == profiling.SPAN_CAT
+             and e["name"] == "race_rollout.launch"]
+    corr = {e["args"]["correlation"] for e in events
+            if e.get("cat") == "kernel" and "race_rollout_kernel" in e["name"]}
+    calls = [e for e in events if e.get("cat") == "cuda_runtime"
+             and e.get("args", {}).get("correlation") in corr]
+    assert len(spans) == len(corr) == len(calls) == 8
+    for c in calls:
+        assert any(s - 50 <= c["ts"] and c["ts"] + c["dur"] <= t + 50
+                   for s, t in spans), c
+    roots = [r for r in recs if r.name == "rollout" and r.parent is None]
+    assert len(roots) == 2
+    for root in roots:
+        under = [r for r in recs if r.root == root.id]
+        assert sum(r.name == "race_rollout.launch" for r in under) == 4
+        assert sum((r.counts or {}).get("host_copies", 0)
+                   for r in under) == 9 * 64
