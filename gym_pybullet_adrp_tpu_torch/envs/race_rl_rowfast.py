@@ -187,6 +187,25 @@ class RowRaceEnv:
         init_rpy = np.asarray(track.init_rpy, dtype=np.float32)[:N]
         self._init_pos = [self._const_rows(init_pos[:, k]) for k in range(3)]
         self._init_rpy = [self._const_rows(init_rpy[:, k]) for k in range(3)]
+        # the draws' constants, functions of the frozen spec and track, on
+        # the device once: a copy from host memory waits for the stream
+        to_dev = self._host_copy
+        self._wind_lo = to_dev(spec.dyn_dist_low)[:, None, None]
+        self._wind_hi = to_dev(spec.dyn_dist_high)[:, None, None]
+        rp, rr = to_dev(spec.rs_pos), to_dev(spec.rs_rot)
+        self._pos_lo, self._pos_hi = (rp[:, 0, None, None],
+                                      rp[:, 1, None, None])
+        self._rpy_lo, self._rpy_hi = (rr[:, 0, None, None],
+                                      rr[:, 1, None, None])
+        self._J0 = to_dev(CF2X_LEGACY["J"])[:, None, None]
+        self._j_lo = to_dev([spec.ri_ixx[0], spec.ri_iyy[0],
+                             spec.ri_izz[0]])[:, None, None]
+        self._j_hi = to_dev([spec.ri_ixx[1], spec.ri_iyy[1],
+                             spec.ri_izz[1]])[:, None, None]
+        self._gate_nom = to_dev(
+            self.gates[:, [0, 1, 5]])[:, :, None, None]  # (G, 3, 1, 1)
+        self._obst_nom = to_dev(
+            self.obstacles[:, :2])[:, :, None, None]     # (O, 2, 1, 1)
         # fully deterministic configs draw the same reset rows every step
         self._static_draws = self._static_stack = None
         if not (spec.random_drone_state or spec.random_gates_obstacles
@@ -226,9 +245,9 @@ class RowRaceEnv:
 
     def _host_copy(self, values):
         """``values`` as float32 on the env's device. On the card the
-        copy from pageable host memory waits for the stream to drain; each
-        is a ``draws.host_copies`` span and counts one ``host_copies`` in
-        the enclosing span (one counts dict a draws span, not a copy)."""
+        copy from pageable host memory waits for the stream to drain, so
+        only the constructor makes them; each is a ``draws.host_copies``
+        span and counts one ``host_copies`` in the enclosing span."""
         profiling.count("host_copies")
         with profiling.span("draws.host_copies"):
             return torch.tensor(values, dtype=torch.float32,
@@ -239,59 +258,42 @@ class RowRaceEnv:
         return lo + u * (hi - lo)
 
     def _sample_draws(self) -> StepDraws:
-        spec, N, T, Tb, G, O = (self.spec, self.N, self.T, self.Tb, self.G,
-                                self.O)
+        spec, T, Tb, G, O = self.spec, self.T, self.Tb, self.G, self.O
         dev, f32 = self.device, torch.float32
         noise_rows = None
         if spec.disturbances:
-            lo = self._host_copy(spec.dyn_dist_low)
-            hi = self._host_copy(spec.dyn_dist_high)
             nt = self.n_ticks
-            wind = self._uniform((nt, 3, T, LANE), lo[:, None, None],
-                                 hi[:, None, None])
+            wind = self._uniform((nt, 3, T, LANE), self._wind_lo,
+                                 self._wind_hi)
             act_n = torch.randn((nt, 4, T, LANE), generator=self.generator,
                                 device=dev) * spec.action_noise_std
             noise_rows = torch.cat([wind, act_n], dim=1).contiguous()
         if spec.random_drone_state:
-            rp = self._host_copy(spec.rs_pos)
-            rr = self._host_copy(spec.rs_rot)
-            dpos = self._uniform((3, T, LANE), rp[:, 0, None, None],
-                                 rp[:, 1, None, None])
-            drpy = self._uniform((3, T, LANE), rr[:, 0, None, None],
-                                 rr[:, 1, None, None])
+            dpos = self._uniform((3, T, LANE), self._pos_lo, self._pos_hi)
+            drpy = self._uniform((3, T, LANE), self._rpy_lo, self._rpy_hi)
         else:
             dpos = torch.zeros((3, T, LANE), dtype=f32, device=dev)
             drpy = torch.zeros((3, T, LANE), dtype=f32, device=dev)
         pose = ([self._init_pos[k] + dpos[k] for k in range(3)]
                 + [self._init_rpy[k] + drpy[k] for k in range(3)])
         mass0 = CF2X_LEGACY["mass"]
-        J0 = self._host_copy(CF2X_LEGACY["J"])
         if spec.random_drone_inertia:
             m_off = self._uniform((T, LANE), spec.ri_mass[0],
                                   spec.ri_mass[1])
-            lo_j = self._host_copy([spec.ri_ixx[0], spec.ri_iyy[0],
-                                    spec.ri_izz[0]])
-            hi_j = self._host_copy([spec.ri_ixx[1], spec.ri_iyy[1],
-                                    spec.ri_izz[1]])
-            j_off = self._uniform((3, T, LANE), lo_j[:, None, None],
-                                  hi_j[:, None, None])
+            j_off = self._uniform((3, T, LANE), self._j_lo, self._j_hi)
             mass = torch.clamp(mass0 + m_off, 0.0, 100.0)
-            J = torch.clamp(J0[:, None, None] + j_off, 0.0, 100.0)
+            J = torch.clamp(self._J0 + j_off, 0.0, 100.0)
         else:
             mass = torch.full((T, LANE), mass0, dtype=f32, device=dev)
-            J = J0[:, None, None].expand(3, T, LANE)
-        gate_nom = self._host_copy(
-            self.gates[:, [0, 1, 5]])[:, :, None, None]  # (G, 3, 1, 1)
-        obst_nom = self._host_copy(
-            self.obstacles[:, :2])[:, :, None, None]     # (O, 2, 1, 1)
+            J = self._J0.expand(3, T, LANE)
         if spec.random_gates_obstacles:
             g_off = self._uniform((G, 3, Tb, LANE), *spec.rg_gates)
             o_off = self._uniform((O, 2, Tb, LANE), *spec.rg_obstacles)
-            gates_rows = gate_nom + g_off
-            obst_rows = obst_nom + o_off
+            gates_rows = self._gate_nom + g_off
+            obst_rows = self._obst_nom + o_off
         else:
-            gates_rows = gate_nom.expand(G, 3, Tb, LANE)
-            obst_rows = obst_nom.expand(O, 2, Tb, LANE)
+            gates_rows = self._gate_nom.expand(G, 3, Tb, LANE)
+            obst_rows = self._obst_nom.expand(O, 2, Tb, LANE)
         RST = torch.stack(pose + [mass, J[0], J[1], J[2]], dim=0)
         return StepDraws(
             noise_rows=noise_rows,

@@ -1062,7 +1062,7 @@ def test_rollout_spans_on_the_trace_clock(dev, tmp_path):
     K5 16 steps a launch) under ``profiling.trace()``: every
     race_rollout_kernel launch's CUDA API call falls inside a
     ``race_rollout.launch`` span on the trace's clock, within 50 us; 4
-    launch spans and 576 host copies a rollout."""
+    launch spans and no host copy a rollout."""
     import json
 
     from gym_pybullet_adrp_tpu_torch.envs import race as race_mod
@@ -1117,4 +1117,36 @@ def test_rollout_spans_on_the_trace_clock(dev, tmp_path):
         under = [r for r in recs if r.root == root.id]
         assert sum(r.name == "race_rollout.launch" for r in under) == 4
         assert sum((r.counts or {}).get("host_copies", 0)
-                   for r in under) == 9 * 64
+                   for r in under) == 0
+
+
+def test_draws_never_synchronize(dev):
+    """The draws of a level3 env (2 drones COMPETE, 1024 envs) after its
+    first draws: ``stacked_draws(16)`` and ``step_draws()`` run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a copy that waits for
+    the stream (a constant from pageable host memory) raises."""
+    from gym_pybullet_adrp_tpu_torch.envs import race as race_mod
+    from gym_pybullet_adrp_tpu_torch.envs.race_rl_rowfast import make_row_env
+    from gym_pybullet_adrp_tpu_torch.utils.config import load_config
+    from gym_pybullet_adrp_tpu_torch.utils.enums import Physics, RaceMode
+
+    cfg, B, N = load_config("level3"), 1024, 2
+    spec = race_mod.RaceSpec.from_config(cfg, N, RaceMode.COMPETE,
+                                         Physics.PYB)
+    env = make_row_env(spec, race_mod.track_from_config(cfg, N), B,
+                       device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(7),
+                       end_after_gate=2, per_drone_reward=True)
+    env.stacked_draws(16)
+    env.step_draws()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stacked = env.stacked_draws(16)
+        single = env.step_draws()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert stacked.noise_rows.shape == (16, 20, 7, env.T, 128)
+    assert single.RST.shape == (10, env.T, 128)
+    assert bool(torch.isfinite(stacked.noise_rows).all())

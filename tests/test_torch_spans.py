@@ -10,10 +10,13 @@ of the race trainer's policy rollout.
     ``idle_by_span`` puts planted idle gaps down to the innermost span,
     and ``device_totals`` sums the planted device events by name.
   The rollout at 128 envs, 8 steps (getting_started 1 drone and level3 2
-    drones COMPETE, 4 steps a K5 call and 1 a step): one root a call, the
-    draws' host copies (none and 9 a step), every child inside its root,
-    and the trajectory and state equal bit for bit with recording on and
-    off.
+    drones COMPETE, 4 steps a K5 call and 1 a step): one root a call, no
+    host copy in the draws (the env makes its constants once), every
+    child inside its root, and the trajectory and state equal bit for bit
+    with recording on and off.
+  The draws (level3 2 drones COMPETE and level1 1 drone, 128 envs): K
+    steps stacked and K single steps equal the benchmark's frozen
+    reference from the same seed to the bit, with no host copy.
 
 The benchmark's readers of these spans: tests/test_torch_span_metrics.py.
 No JAX here; one torch thread.
@@ -175,7 +178,7 @@ def _flat(out):
 
 
 @pytest.mark.parametrize("config,n_drones,chunk,copies", [
-    ("getting_started", 1, 4, 0), ("level3", 2, 4, 9), ("level3", 2, 0, 9)],
+    ("getting_started", 1, 4, 0), ("level3", 2, 4, 0), ("level3", 2, 0, 0)],
     ids=["gs-chunk4", "level3-chunk4", "level3-per-step"])
 def test_policy_rollout_spans(config, n_drones, chunk, copies):
     n_steps = 8
@@ -212,3 +215,37 @@ def test_policy_rollout_spans(config, n_drones, chunk, copies):
         assert names.count("draws.host_copies") == copies * n_steps
         assert all(r.parent != root.id for r in under
                    if r.name == "draws.host_copies")
+
+
+@pytest.mark.parametrize("config,n_drones", [("level3", 2), ("level1", 1)],
+                         ids=["level3-2d", "level1-1d"])
+def test_draws_equal_the_reference(config, n_drones):
+    """``stacked_draws(4)`` on one env and four ``step_draws()`` on a
+    second, against the frozen reference's ``step_draws`` from the same
+    seed: every block equal to the bit, and no host copy after the env's
+    construction (the ``host_copies`` counter reads 0 around the draws)."""
+    from benchmark.kinds.policy_rollout import port_spec_track
+    from benchmark.reference.race_env import RaceReference
+
+    B, K, seed = 128, 4, 11
+    cfg = {"scenario": dict(load_config(config)), "num_drones": n_drones,
+           "racemode": "COMPETE" if n_drones > 1 else "COMPARE"}
+    spec, track = port_spec_track(cfg)
+    envs = [make_row_env(spec, track, B, device="cpu",
+                         generator=torch.Generator().manual_seed(seed),
+                         per_drone_reward=n_drones > 1) for _ in range(2)]
+    ref = RaceReference(cfg, B, "cpu")
+    assert ref._static_draws is None
+    gen = ref.generator(seed)
+    want = [ref.step_draws(gen) for _ in range(K)]
+    with profiling.recording():
+        stacked = envs[0].stacked_draws(K)
+        single = [envs[1].step_draws() for _ in range(K)]
+    recs = profiling.take()
+    assert _names(recs) == ["rollout.draws"] * (1 + K)
+    assert all(not (r.counts or {}).get("host_copies") for r in recs)
+    for field, key in (("noise_rows", "noise"), ("RST", "RST"),
+                       ("RSTG", "RSTG"), ("RSTO", "RSTO")):
+        for k in range(K):
+            assert torch.equal(getattr(stacked, field)[k], want[k][key])
+            assert torch.equal(getattr(single[k], field), want[k][key])
